@@ -1,0 +1,18 @@
+"""minimap2_rs_torch — the PyTorch/CUDA port of minimap2_rs_tpu.
+
+The JAX package `minimap2_rs_tpu` stays the reference: every module here
+keeps the name of its JAX counterpart, and the tests hold each one
+against it bit for bit. This first slice covers the default "lite"
+mapping path (`models.mapper.Mapper.map_reads_paf`, odd k with
+2k+1 <= 32, non-HPC queries), with the chaining DP as a CUDA kernel
+written for Hopper (`csrc/chain_dp.cu`).
+
+The port imports torch and numpy and never jax. From the reference
+package it reuses only the JAX-free host modules: `config`, `oracle`,
+`utils`, `io` and `runtime.host` (the native C++ formatter and encoder).
+
+Devices are explicit: every entry point takes `device`, and nothing
+falls back to the CPU because CUDA is missing.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,533 @@
+"""The end-to-end mapper on the lite path, in PyTorch.
+
+Counterpart of minimap2_rs_tpu/models/mapper.py (Mapper.map_reads_paf on
+the default lite path, mapper.py:565-668). Reads are bucketed by length
+into padded batches; one device program per batch runs the whole
+pipeline through on-device finalize (models/stages.py), and the host
+formats PAF from the 10-word wire rows with the native runtime. After
+the in-order drain come the lazy wide-band pass (long-read shapes), the
+4x-capacity tier for overflowed reads, and the host oracle pipeline for
+what is left.
+
+Submission runs on a background thread feeding the drain in order; on
+CUDA each batch goes up as a pinned 2-bit wire and comes back through a
+pinned buffer with a non-blocking copy and an event, so the host
+postprocess of batch i overlaps the device work of later batches.
+
+The general (non-lite) path — MM2T_NO_LITE or min_cnt < 2 — is not
+ported and raises NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import queue
+import threading
+import time
+
+import numpy as np
+import torch
+
+from minimap2_rs_tpu.config import ChainParams, MapParams
+from minimap2_rs_tpu.oracle import pipeline as opipeline
+from minimap2_rs_tpu.oracle.index import OracleIndex
+from minimap2_rs_tpu.runtime.host import (
+    native_encode_pack2,
+    native_encode_pack4,
+    native_format_lite,
+)
+from minimap2_rs_tpu.utils.packing import nt4_encode
+
+from ..device import resolve_device
+from ..ops.chain_ops import ChainScalars, chain_scalars_from_params, log2_table
+from ..ops.finalize_ops import FIELDS, WIRE_WORDS, unpack_fields_wire
+from ..ops.index_ops import DeviceIndex
+from .stages import chain_finalize_lite, sketch_to_anchors, unpack_codes2, unpack_codes4
+
+# per-batch capacity of the 2-bit wire's ambiguous-base exception list;
+# batches with more Ns take the 4-bit wire
+_NEX_CAP = 2048
+# band policy: shapes below this anchor capacity compute both chain bands
+# in one call (the JAX package's sublane/lane kernel boundary, kept so
+# both packages batch and route reads identically)
+_DUAL_BAND_MAX_A = 1024
+# anchor slots per device call (caps reads per call for long buckets)
+_SLOT_TARGET = 2 << 20
+# chain window cap (slots) at 1x capacity; reads whose truncated window
+# could lose a predecessor are flagged (win_ovf) and re-run at the full
+# window in the 4x tier
+LITE_WINDOW_CAP = 1024
+
+
+def _dv_from_fields(fields: np.ndarray, col: dict) -> np.ndarray:
+    """dv for the whole batch in one vectorized float32 pass (bit-equal
+    to the reference's scalar f32 math, paf.rs:156-199)."""
+    avg_k = fields[:, col["sum_span"]].astype(np.float32) / np.maximum(
+        fields[:, col["n_mini"]], 1
+    ).astype(np.float32)
+    kf = np.maximum(avg_k, np.float32(1.0))
+    frac = fields[:, col["n_match"]].astype(np.float32) / np.maximum(
+        fields[:, col["n_tot"]], 1
+    ).astype(np.float32)
+    return np.where(
+        (frac < np.float32(1.0)) & (fields[:, col["dv_found"]] != 0),
+        np.float32(1.0) - frac ** (np.float32(1.0) / kf),
+        np.float32(0.0),
+    )
+
+
+def _fused_map_stage_lite(
+    dev_idx: DeviceIndex,
+    codes: torch.Tensor,
+    lengths: torch.Tensor,
+    nex: torch.Tensor,
+    scalars: ChainScalars,
+    scalars_wide: ChainScalars,
+    mid_occ: int,
+    tlens: torch.Tensor,
+    rmq_rescue_size: int,
+    rmq_rescue_ratio: float,
+    log2_tab: torch.Tensor,
+    *,
+    w: int, k: int, q_occ_max: int, q_occ_frac: float,
+    M: int, A: int, window: int,
+    flag_window_ovf: bool, wire: str, wide: bool,
+) -> torch.Tensor:
+    """The whole per-batch device pipeline (JAX _fused_map_stage_lite,
+    mapper.py:160-219); returns the (B, 10) int32 wire rows."""
+    if wire == "4bit":
+        codes = unpack_codes4(codes)
+    elif wire == "2bit":
+        codes = unpack_codes2(codes, lengths, nex)
+    if codes.shape[-1] > 1 << 22:
+        raise ValueError("reads longer than 4M bases are unsupported")
+    anc = sketch_to_anchors(
+        dev_idx, codes, lengths, mid_occ, w=w, k=k,
+        q_occ_max=q_occ_max, q_occ_frac=q_occ_frac, M=M, A=A,
+    )
+    return chain_finalize_lite(
+        anc, lengths, scalars, scalars_wide, tlens,
+        rmq_rescue_size, rmq_rescue_ratio,
+        k=k, window=window, log2_tab=log2_tab,
+        flag_window_ovf=flag_window_ovf, wide=wide,
+    )
+
+
+def _add_stats(dst: dict, key: str, v) -> None:
+    dst[key] = dst.get(key, 0) + v
+
+
+@dataclasses.dataclass
+class Mapper:
+    idx: OracleIndex
+    dev_idx: DeviceIndex
+    cp: ChainParams
+    mp: MapParams
+    mid_occ: int
+    device: torch.device
+    # length buckets: reads are padded to the smallest bucket >= length
+    buckets: tuple[int, ...] = (
+        1024, 2048, 4096, 8192, 12288, 16384, 24576, 32768, 49152, 65536
+    )
+    batch_size: int = 1024      # max reads per device call
+    mini_frac: float = 0.22     # minimizer slots per base of bucket
+    anchor_frac: float = 0.18   # anchor slots per base of bucket
+    stats: dict = dataclasses.field(default_factory=dict)
+
+    def __post_init__(self):
+        # the anchor expansion packs query pos<<1|strand into 23 bits
+        if max(self.buckets) > 1 << 22:
+            raise ValueError("buckets must be <= 4M bases")
+        self._tlens = np.array([s.length for s in self.idx.seq], dtype=np.int32)
+        self._tnames = [s.name or "*" for s in self.idx.seq]
+        enc = [n.encode() for n in self._tnames]
+        self._tname_blob = b"".join(enc)
+        self._tname_off = np.zeros(len(enc) + 1, dtype=np.int64)
+        np.cumsum([len(n) for n in enc], out=self._tname_off[1:])
+        self._tlens_dev = torch.from_numpy(self._tlens).to(self.device)
+        self._scalars = chain_scalars_from_params(self.cp)
+        self._scalars_wide = chain_scalars_from_params(
+            dataclasses.replace(self.cp, bw=self.cp.bw_long)
+        )
+        self._log2_tab = log2_table(max(self.cp.bw, self.cp.bw_long) + 1).to(self.device)
+        self._tier2_queue: list = []
+        self._wide_queue: list = []
+
+    @classmethod
+    def from_oracle_index(cls, idx: OracleIndex, cp: ChainParams,
+                          mp: MapParams = MapParams(), *, device, **kw) -> "Mapper":
+        dev = resolve_device(device)
+        dev_idx = DeviceIndex.from_host(
+            idx.keys, idx.starts, idx.counts, idx.positions, key_bits=2 * idx.k,
+            seq_lens=[s.length for s in idx.seq], device=dev,
+        )
+        mid_occ = max(idx.calc_mid_occ(mp.frac_top_repetitive), mp.mid_occ_floor)
+        return cls(idx=idx, dev_idx=dev_idx, cp=cp, mp=mp, mid_occ=mid_occ,
+                   device=dev, **kw)
+
+    def _t(self, key: str, dt: float):
+        _add_stats(self.stats, key, dt)
+
+    def _lite_eligible(self) -> bool:
+        """The on-device finalization is valid when the reference
+        backtrack necessarily takes its greedy single-chain fallback
+        (min_cnt >= 2); MM2T_NO_LITE selects the general path."""
+        return not os.environ.get("MM2T_NO_LITE") and self.cp.min_cnt >= 2
+
+    # ------------------------------------------------------------------
+
+    def map_reads_paf(self, reads: list[tuple[str, bytes]]) -> bytes:
+        """Map reads; returns the PAF output as one newline-terminated
+        bytes blob in input order."""
+        if not self._lite_eligible():
+            raise NotImplementedError(
+                "the general (non-lite) mapping path is not ported"
+            )
+        results: list = [None] * len(reads)
+        order = sorted(range(len(reads)), key=lambda i: len(reads[i][1]))
+        groups: dict[int, list[int]] = {}
+        for i in order:
+            L = len(reads[i][1])
+            if L == 0:
+                results[i] = []
+                continue
+            bucket = next((b for b in self.buckets if L <= b), None)
+            if bucket is None:  # longer than the largest bucket
+                results[i] = self._host_fallback(reads[i])
+                continue
+            groups.setdefault(bucket, []).append(i)
+
+        # phase 1: a background thread submits every batch; the drain
+        # below consumes them in submission order. The producer keeps
+        # its own stats, merged after the join.
+        self._tier2_queue = []
+        self._wide_queue = []
+        q: queue.Queue = queue.Queue()
+        err: list = []
+        sub_stats: dict = {}
+
+        def _producer():
+            t0 = time.perf_counter()
+            try:
+                self._submit_groups(reads, groups, self._scalars, mult=1,
+                                    sink=q.put, stats=sub_stats)
+            except BaseException as e:  # re-raised by the caller after join
+                err.append(e)
+            finally:
+                q.put(None)
+                sub_stats["submit"] = time.perf_counter() - t0
+
+        th = threading.Thread(target=_producer, daemon=True)
+        th.start()
+        try:
+            self._drain_pending(reads, iter(q.get, None), results)
+        finally:
+            th.join()
+        for key, v in sub_stats.items():
+            _add_stats(self.stats, key, v)
+        if err:
+            raise err[0]
+
+        # phase 2.2: rescue-flagged long-read-shape reads re-run with the
+        # bw_long scalars (single band)
+        t4 = time.perf_counter()
+        self._drain_wides_lite(reads, results)
+        self._t("wide", time.perf_counter() - t4)
+
+        # phase 2.5: capacity-overflow reads re-run at 4x slots
+        t4 = time.perf_counter()
+        self._drain_tier2(reads, results)
+        self._t("tier2", time.perf_counter() - t4)
+
+        parts = [line for r in results if r for line in r]
+        return b"\n".join(parts) + b"\n" if parts else b""
+
+    def map_reads(self, reads: list[tuple[str, bytes]]) -> list[str]:
+        """map_reads_paf decoded into a list of PAF line strings."""
+        blob = self.map_reads_paf(reads)
+        return blob.decode().split("\n")[:-1] if blob else []
+
+    def _shapes_for(self, bucket: int, mult: int):
+        """Padded capacities (M, A), chain window and reads per call for
+        a length bucket (mapper.py:676-688)."""
+        lane = lambda v: max(128, -(-int(v) // 128) * 128)
+        M = min(lane(bucket * self.mini_frac * mult), lane(bucket))
+        A = lane(bucket * self.anchor_frac * mult)
+        window = min(self.cp.max_chain_iter, A)
+        B = min(self.batch_size, max(8, _SLOT_TARGET // A))
+        B = B // 128 * 128 if B >= 128 else -(-B // 8) * 8
+        return M, A, window, B
+
+    @staticmethod
+    def _quantize_b(n: int, b_max: int) -> int:
+        """Padded rows for an n-read chunk: the smallest 1.5x-step
+        capacity (128 x {1,2,3,4,6,8,...}) >= n, capped at b_max."""
+        if n >= b_max:
+            return b_max
+        c = 128
+        while c < n:
+            c2 = c + (c >> 1) if c >= 256 else c * 2
+            c = c2 // 128 * 128
+        return min(c, b_max)
+
+    @staticmethod
+    def _dual_band(A: int) -> bool:
+        """Short-read shapes run both chain bands in one call (rescue
+        resolved on device); long-read shapes run the normal band and
+        re-run rescue-flagged reads lazily (phase 2.2)."""
+        return A < _DUAL_BAND_MAX_A
+
+    def _encode(self, seqs: list[bytes], B: int, bucket: int):
+        """Host batch -> (wire array, nex or None, wire name): the 2-bit
+        wire, the 4-bit wire when the batch holds more than _NEX_CAP
+        ambiguous bases, NumPy encoding without the native runtime."""
+        seqs = seqs + [b""] * (B - len(seqs))
+        out2 = native_encode_pack2(seqs, bucket // 4, _NEX_CAP)
+        if out2 is not None:
+            return out2[0], out2[1], "2bit"
+        packed4 = native_encode_pack4(seqs, bucket // 2)
+        if packed4 is None:
+            codes = np.full((B, bucket), 4, dtype=np.uint8)
+            enc = nt4_encode(b"".join(seqs))
+            off = 0
+            for bi, s in enumerate(seqs):
+                codes[bi, : len(s)] = enc[off : off + len(s)]
+                off += len(s)
+            packed4 = codes[:, 0::2] | (codes[:, 1::2] << 4)
+        return packed4, None, "4bit"
+
+    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(arr)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def _submit_groups(self, reads, groups, scalars, mult=None, band="auto",
+                       sink=None, stats=None):
+        """groups: {bucket: [ri...]} with uniform `mult`, or
+        {(bucket, mult): [ri...]} when mult is None.
+        band: "auto" applies _dual_band per bucket; "tier2" forces the
+        dual-band program and routes residual overflow to the host;
+        "widepass" is phase 2.2's single-band re-run.
+        sink: each submitted batch is also pushed to sink(entry)."""
+        stats = self.stats if stats is None else stats
+        pending = []
+        for gkey, idxs in groups.items():
+            bucket, gmult = gkey if mult is None else (gkey, mult)
+            M, A, window, B_max = self._shapes_for(bucket, gmult)
+            if band == "tier2":
+                wide_prog, mode = True, "tier2"
+            elif band == "auto" and self._dual_band(A):
+                wide_prog, mode = True, "normal"
+            elif band == "widepass":
+                wide_prog, mode = False, "wide"
+            else:
+                wide_prog, mode = False, "lazy"
+            if gmult == 1:
+                window = min(window, LITE_WINDOW_CAP)
+            for c0 in range(0, len(idxs), B_max):
+                chunk = idxs[c0 : c0 + B_max]
+                B = self._quantize_b(len(chunk), B_max)
+                lengths = np.zeros(B, dtype=np.int32)
+                lengths[: len(chunk)] = [len(reads[ri][1]) for ri in chunk]
+                wire_arr, nex, wire = self._encode(
+                    [reads[ri][1] for ri in chunk], B, bucket
+                )
+                _add_stats(stats, "h2d_bytes", wire_arr.nbytes + lengths.nbytes
+                           + (nex.nbytes if nex is not None else 0))
+                if nex is None:
+                    nex = np.zeros(1, dtype=np.int32)
+                out = _fused_map_stage_lite(
+                    self.dev_idx, self._to_device(wire_arr),
+                    self._to_device(lengths), self._to_device(nex),
+                    scalars, self._scalars_wide, self.mid_occ, self._tlens_dev,
+                    self.cp.rmq_rescue_size, self.cp.rmq_rescue_ratio,
+                    self._log2_tab,
+                    w=self.idx.w, k=self.idx.k,
+                    q_occ_max=self.mp.q_occ_max, q_occ_frac=self.mp.q_occ_frac,
+                    M=M, A=A, window=window,
+                    flag_window_ovf=window < min(self.cp.max_chain_iter, A),
+                    wire=wire, wide=wide_prog,
+                )
+                ready = None
+                if out.is_cuda:
+                    # start the D2H copy now; the drain waits on the event
+                    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+                    host.copy_(out, non_blocking=True)
+                    ready = torch.cuda.Event()
+                    ready.record()
+                    out = host
+                entry = (chunk, out, ready, mode)
+                pending.append(entry)
+                if sink is not None:
+                    sink(entry)
+        return pending
+
+    def _drain_pending(self, reads, pending, results):
+        for chunk, out, ready, mode in pending:
+            t1 = time.perf_counter()
+            if ready is not None:
+                ready.synchronize()
+            fields = out.numpy()
+            _add_stats(self.stats, "d2h_bytes", fields.nbytes)
+            if fields.shape[1] == WIRE_WORDS:
+                fields = unpack_fields_wire(fields)
+            t2 = time.perf_counter()
+            self._postprocess_lite(reads, chunk, fields, results, mode=mode)
+            t3 = time.perf_counter()
+            self._t("d2h+wait", t2 - t1)
+            self._t("post", t3 - t2)
+
+    def _drain_wides_lite(self, reads, results):
+        """Phase 2.2: long-read-shape reads whose normal-band rescue flag
+        fired re-run with the wide-band scalars (single band), replacing
+        their rows (lchain.rs:321-330)."""
+        wq = self._wide_queue
+        self._wide_queue = []
+        _add_stats(self.stats, "wide_reads", len(wq))
+        if not wq:
+            return
+        pending = self._submit_groups(reads, self._group(reads, wq),
+                                      self._scalars_wide, mult=1, band="widepass")
+        self._drain_pending(reads, pending, results)
+
+    def _drain_tier2(self, reads, results):
+        """Re-run reads whose minimizer/anchor population overflowed the
+        default slots (or whose window was truncated) at 4x capacities;
+        residual overflow goes to the host pipeline."""
+        tq = self._tier2_queue
+        self._tier2_queue = []
+        _add_stats(self.stats, "tier2_reads", len(tq))
+        if not tq:
+            return
+        if len(tq) < 48:
+            # a handful of reads: the host pipeline is cheaper than a
+            # fresh device program
+            for ri in tq:
+                results[ri] = self._host_fallback(reads[ri])
+            return
+        pending = self._submit_groups(reads, self._group(reads, tq),
+                                      self._scalars, mult=4, band="tier2")
+        self._drain_pending(reads, pending, results)
+
+    def _group(self, reads, ris) -> dict[int, list[int]]:
+        groups: dict[int, list[int]] = {}
+        for ri in ris:
+            L = len(reads[ri][1])
+            groups.setdefault(next(b for b in self.buckets if L <= b), []).append(ri)
+        return groups
+
+    def _postprocess_lite(self, reads, chunk, fields, results, mode="normal"):
+        """Route the device's (B, 18) field rows: clean rows become PAF
+        line bytes, overflow rows requeue to the 4x tier or fall back to
+        the host pipeline.
+
+        Modes:
+          "normal" — merged dual-band rows; overflow to the tier.
+          "lazy"   — single-band rows (long-read shapes): rescue-flagged
+                     clean rows queue for the phase-2.2 wide re-run.
+          "wide"   — the phase-2.2 re-run: rows replace phase-1 results.
+          "tier2"  — final: residual overflow to the host pipeline.
+
+        The native runtime formats the lines (mm2t_format_lite); the
+        Python loop below is the bit-identical fallback."""
+        col = {name: i for i, name in enumerate(FIELDS)}
+        requeue = mode != "tier2"
+        lazy = mode == "lazy"
+        n = len(chunk)
+        fr = np.ascontiguousarray(fields[:n])
+        ovf_m = (
+            (fr[:, col["mini_ovf"]] != 0)
+            | (fr[:, col["anc_ovf"]] != 0)
+            | (fr[:, col["win_ovf"]] != 0)
+        )
+        resc = np.zeros(n, dtype=bool)
+        if lazy:
+            resc = (fr[:, col["rescue"]] != 0) & ~ovf_m
+            if not fr.flags.writeable:
+                fr = fr.copy()
+            # suppress the normal-band line; the wide pass replaces it
+            fr[resc, col["n_anchors"]] = 0
+        elif mode != "wide":
+            # dual-band rows carry the normal band's rescue flag: count
+            # the device-resolved wide-band switches
+            _add_stats(self.stats, "wide_reads",
+                       int(((fr[:, col["rescue"]] != 0) & ~ovf_m).sum()))
+        dv_n = _dv_from_fields(fr, col)
+        qlens = np.fromiter((len(reads[ri][1]) for ri in chunk), dtype=np.int32, count=n)
+        out = native_format_lite(
+            fr, dv_n, qlens, [reads[ri][0].encode() for ri in chunk],
+            self._tname_blob, self._tname_off, self._tlens, self.mp.mapq, col,
+        )
+        if out is not None:
+            blob, off = out
+            bmv = memoryview(blob)
+            ovf = ovf_m.tolist()
+            rescl = resc.tolist()
+            offl = off.tolist()
+            for bi, ri in enumerate(chunk):
+                a, b = offl[bi], offl[bi + 1]
+                if rescl[bi]:
+                    self._wide_queue.append(ri)
+                elif b > a:
+                    results[ri] = [bmv[a:b]]
+                elif ovf[bi]:
+                    if requeue:
+                        self._tier2_queue.append(ri)
+                    else:
+                        results[ri] = self._host_fallback(reads[ri])
+                else:
+                    results[ri] = []
+            return
+        self._format_python(reads, chunk, fr, dv_n, resc, ovf_m, results, requeue)
+
+    def _format_python(self, reads, chunk, fr, dv_n, resc, ovf_m, results, requeue):
+        """Python PAF formatting of lite rows (the native formatter's
+        bit-identical fallback)."""
+        col = {name: i for i, name in enumerate(FIELDS)}
+        rows = fr.tolist()
+        dv_list = dv_n.tolist()
+        tnames, tlens, mapq = self._tnames, self._tlens.tolist(), self.mp.mapq
+        for bi, ri in enumerate(chunk):
+            qname, qseq = reads[ri]
+            row = rows[bi]
+            if resc[bi]:
+                self._wide_queue.append(ri)
+                continue
+            if ovf_m[bi]:
+                if requeue:
+                    self._tier2_queue.append(ri)
+                else:
+                    results[ri] = self._host_fallback(reads[ri])
+                continue
+            if row[col["n_anchors"]] == 0:
+                results[ri] = []
+                continue
+            qlen = len(qseq)
+            qs, qe = row[col["qs"]], row[col["qe"]]
+            ts, te = row[col["ts"]], row[col["te"]]
+            grp = row[col["grp"]]
+            rev = (grp >> 31) & 1
+            rid = grp & 0x7FFFFFFF
+            strand = "-" if rev else "+"
+            wqs, wqe = (qlen - qe, qlen - qs) if rev else (qs, qe)
+            s1 = max(row[col["score"]], 0)
+            results[ri] = [(
+                f"{qname}\t{qlen}\t{wqs}\t{wqe}\t{strand}\t"
+                f"{tnames[rid]}\t{tlens[rid]}\t{ts}\t{te}\t"
+                f"{max(qe - qs, 0)}\t{max(te - ts, 0)}\t{mapq}\t"
+                f"tp:A:P\tcm:i:{row[col['cm']]}\ts1:i:{s1}\ts2:i:0\t"
+                f"dv:f:{dv_list[bi]:.4f}\trl:i:0"
+            ).encode()]
+
+    def _host_fallback(self, read) -> list[bytes]:
+        """The reference-faithful host pipeline for one read."""
+        _add_stats(self.stats, "host_reads", 1)
+        qname, qseq = read
+        return [
+            line.encode()
+            for line in opipeline.align_read(
+                self.idx, qname, qseq, self.cp, self.mp, mid_occ=self.mid_occ
+            )
+        ]

@@ -1,0 +1,157 @@
+"""Device pipeline stages of the lite mapping path, in PyTorch.
+
+Counterpart of minimap2_rs_tpu/models/stages.py: wire unpack -> sketch
+-> minimizer compaction -> key sort -> occurrence filter -> index lookup
+-> anchor expansion -> chain DP (the CUDA kernel on the card) ->
+on-device finalize -> 10-word wire rows.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..kernels.chain_dp import chain_dp_aux_batch
+from ..ops.chain_ops import ChainScalars
+from ..ops.finalize_ops import (
+    FIELDS,
+    as_i32,
+    finalize_from_aux,
+    pack_fields_wire,
+    wire_packable,
+)
+from ..ops.index_ops import DeviceIndex
+from ..ops.seeds_ops import build_anchors_device, query_occ_filter, sort_minimizers_by_key
+from ..ops.sketch import compact_minimizers, sketch_positions
+
+
+def unpack_codes4(codes4: torch.Tensor) -> torch.Tensor:
+    """(B, L//2) uint8 two-nibble packed nt4 codes -> (B, L) int32."""
+    B, L2 = codes4.shape
+    c = codes4.to(torch.int32)
+    return torch.stack([c & 0xF, c >> 4], dim=-1).reshape(B, 2 * L2)
+
+
+def unpack_codes2(codes2: torch.Tensor, lengths: torch.Tensor,
+                  nex: torch.Tensor) -> torch.Tensor:
+    """2-bit H2D wire -> (B, L) int32 nt4 codes, equal to the 4-bit
+    wire's: (B, L//4) uint8 rows of 4 codes/byte; positions past each
+    read's length become the nt4=4 sentinel; the flat N-exception list
+    `nex` (padded with the out-of-range B*L) scatters 4 back."""
+    B, L4 = codes2.shape
+    L = 4 * L4
+    c = codes2.to(torch.int32)
+    codes = torch.stack([(c >> (2 * s)) & 3 for s in range(4)], dim=-1).reshape(B, L)
+    pos = torch.arange(L, device=codes.device)
+    codes = torch.where(pos[None, :] < lengths[:, None], codes, 4)
+    # one spare slot takes the out-of-range padding entries
+    flat = torch.cat([codes.reshape(-1), codes.new_zeros(1)])
+    flat[nex.to(torch.int64).clamp(0, B * L)] = 4
+    return flat[: B * L].reshape(B, L)
+
+
+def sketch_compact_filter(codes, lengths, *, w: int, k: int, q_occ_max: int,
+                          q_occ_frac: float, M: int) -> dict:
+    """Index-independent per-read work: sketch, minimizer compaction,
+    key sort, query-occurrence filter (seeds.rs:7-36). Queries are
+    always sketched non-HPC (seeds.rs:7-11)."""
+    ks, ps, emitted = sketch_positions(codes, lengths, w, k)
+    cks, cps, n_mini, mini_ovf = compact_minimizers(ks, ps, emitted, M)
+    sks, sps = sort_minimizers_by_key(cks, cps)
+    keep = query_occ_filter(sks, n_mini, q_occ_max, q_occ_frac)
+    return dict(sks=sks, sps=sps, keep=keep, cps=cps, n_mini=n_mini,
+                mini_ovf=mini_ovf)
+
+
+def lookup_expand(dev_idx: DeviceIndex, mini: dict, lengths, mid_occ: int,
+                  A: int) -> dict:
+    """Index lookup + anchor expansion + per-read anchor sort
+    (seeds.rs:42-79)."""
+    x_hi, x_lo, y_hi, y_lo, n_anchors, anc_ovf = build_anchors_device(
+        dev_idx, mini["sks"], mini["sps"], mini["keep"], lengths, mid_occ, A,
+    )
+    return dict(x_hi=x_hi, x_lo=x_lo, y_hi=y_hi, y_lo=y_lo,
+                n_anchors=n_anchors, anc_ovf=anc_ovf)
+
+
+def sketch_to_anchors(dev_idx: DeviceIndex, codes, lengths, mid_occ: int, *,
+                      w: int, k: int, q_occ_max: int, q_occ_frac: float,
+                      M: int, A: int) -> dict:
+    """Per-read minimizers + anchors: sorted anchor words x_hi/x_lo/
+    y_hi/y_lo (padding 0xFFFFFFFF), n_anchors, anc_ovf, position-sorted
+    minimizer payloads cps (pos<<1|strand), n_mini, mini_ovf."""
+    mini = sketch_compact_filter(codes, lengths, w=w, k=k, q_occ_max=q_occ_max,
+                                 q_occ_frac=q_occ_frac, M=M)
+    anc = lookup_expand(dev_idx, mini, lengths, mid_occ, A)
+    anc.update(cps=mini["cps"], n_mini=mini["n_mini"], mini_ovf=mini["mini_ovf"])
+    return anc
+
+
+def _win_ovf(x_hi, x_lo, n_anchors, mdx: int, window: int):
+    """Exact truncation detector: with anchors sorted by the 64-bit
+    x = x_hi<<32|x_lo, a predecessor farther than `window` slots can
+    pass max_dist_x (lchain.rs:75) only if x[i-window] >= x[i] - mdx
+    (saturating at 0). Compared as (hi, lo) pairs."""
+    A = x_hi.shape[1]
+    lo = x_lo - mdx
+    borrow = lo < 0
+    neg = (x_hi == 0) & borrow
+    th = torch.where(neg, 0, x_hi - borrow.to(torch.int64))[:, window:]
+    tl = torch.where(neg, 0, lo + (borrow.to(torch.int64) << 32))[:, window:]
+    ph, pl = x_hi[:, : A - window], x_lo[:, : A - window]
+    far = (th < ph) | ((th == ph) & (tl <= pl))
+    slot = torch.arange(window, A, device=x_hi.device)
+    far = far & (slot[None, :] < n_anchors[:, None])
+    return far.any(dim=1)
+
+
+def chain_finalize_lite(
+    anc: dict,
+    lengths: torch.Tensor,   # (B,) int32
+    scalars: ChainScalars,
+    scalars_wide: ChainScalars,
+    tlens: torch.Tensor,     # (n_seq,) int32
+    rmq_rescue_size: int,
+    rmq_rescue_ratio: float,
+    *,
+    k: int, window: int, log2_tab: torch.Tensor,
+    flag_window_ovf: bool = False,
+    wide: bool = True,
+) -> torch.Tensor:
+    """Chain DP + finalize; returns the wire rows ((B, 10) int32 when
+    wire_packable, else the (B, 18) FIELDS rows).
+
+    wide=True (dual band) also runs the bw_long band and switches to it
+    for reads whose normal-band rescue flag fired (lchain.rs:321-330);
+    the merged row's rescue column keeps the normal band's flag.
+    wide=False runs the `scalars` band only. win_ovf is computed per
+    band with that band's max_dist_x."""
+    x_hi, x_lo, y_hi, y_lo = anc["x_hi"], anc["x_lo"], anc["y_hi"], anc["y_lo"]
+    n_anchors, cps = anc["n_anchors"], anc["cps"]
+    B, A = x_hi.shape
+    M = cps.shape[1]
+    mini_pos = cps >> 1  # position-sorted; padding stays max
+    args = tuple(
+        t.contiguous() for t in (as_i32(x_hi), as_i32(x_lo), as_i32(y_lo),
+                                 as_i32(y_hi & 0xFF))
+    )
+    fields = []
+    for scal in (scalars, scalars_wide) if wide else (scalars,):
+        f, cnt, sq, sr = chain_dp_aux_batch(*args, scal, window, log2_tab)
+        win_ovf = (
+            _win_ovf(x_hi, x_lo, n_anchors, scal.max_dist_x, window)
+            if flag_window_ovf and A > window else None
+        )
+        fields.append(finalize_from_aux(
+            f, cnt, sq, sr, x_hi, x_lo, y_lo, n_anchors,
+            mini_pos, anc["n_mini"], lengths, tlens, anc["mini_ovf"],
+            anc["anc_ovf"], k, rmq_rescue_size, rmq_rescue_ratio,
+            win_ovf=win_ovf,
+        ))
+    pack = pack_fields_wire if wire_packable(A, M) else (lambda x: x)
+    if not wide:
+        return pack(fields[0])
+    ri = FIELDS.index("rescue")
+    resc = fields[0][:, ri] != 0
+    merged = torch.where(resc[:, None], fields[1], fields[0])
+    merged[:, ri] = resc.to(merged.dtype)
+    return pack(merged)

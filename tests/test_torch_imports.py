@@ -1,0 +1,71 @@
+"""The port never imports jax, and its kernel wrapper validates what it is
+given before any launch."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from minimap2_rs_torch.device import resolve_device
+from minimap2_rs_torch.kernels.chain_dp import chain_dp_aux_batch
+from minimap2_rs_torch.ops.chain_ops import ChainScalars, log2_table
+
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def test_port_imports_no_jax():
+    mods = sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts)
+        for p in (ROOT / "minimap2_rs_torch").rglob("*.py")
+    )
+    mods = [m[: -len(".__init__")] if m.endswith(".__init__") else m for m in mods]
+    assert "minimap2_rs_torch.models.mapper" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
+        "assert not bad, bad\n"
+        "assert 'triton' not in sys.modules\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+
+
+SCAL = ChainScalars(max_dist_x=5000, max_dist_y=5000, bw=500,
+                    chn_pen_gap=0.12, chn_pen_skip=0.0)
+
+
+def _args(B=2, A=16):
+    return [torch.zeros((B, A), dtype=torch.int32) for _ in range(4)]
+
+
+@pytest.mark.parametrize("bad", ["dtype", "noncontig", "shape", "ndim", "table"])
+def test_chain_wrapper_rejects_bad_inputs(bad):
+    args = _args()
+    tab = log2_table(SCAL.bw + 1)
+    if bad == "dtype":
+        args[1] = args[1].to(torch.int64)
+    elif bad == "noncontig":
+        args[2] = torch.zeros((16, 2), dtype=torch.int32).t()
+    elif bad == "shape":
+        args[3] = torch.zeros((2, 8), dtype=torch.int32)
+    elif bad == "ndim":
+        args = [a.reshape(-1) for a in args]
+    elif bad == "table":
+        tab = log2_table(SCAL.bw)  # one entry short
+    with pytest.raises((TypeError, ValueError)):
+        chain_dp_aux_batch(*args, SCAL, 8, tab)
+
+
+def test_cuda_request_without_cuda_raises():
+    if torch.cuda.is_available():
+        assert resolve_device("cuda").type == "cuda"
+        return
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
