@@ -2,14 +2,29 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA chain-DP kernel from minimap2_rs_torch/csrc, holds it
-bit for bit against its plain PyTorch version at the shapes the mapping
-path gives it, then maps the production configuration through the
-port's Mapper.map_reads_paf: a 5 Mbp random genome (seed 0, k=15, w=10),
-16,384 reads of 500-1000 bp (seed 1) and 64 long reads of 5-20 kb
-(seed 3), with byte parity against the host oracle pipeline on every
-16th short read and on every long read. Exits non-zero, printing no
-result, when any phase fails or CUDA is unavailable.
+Builds the CUDA chain-DP kernel (both variants) from
+minimap2_rs_torch/csrc and maps through the port's Mapper.map_reads_paf:
+
+  * lite path (default ChainParams, k=15): a 5 Mbp random genome
+    (seed 0, w=10), 16,384 reads of 500-1000 bp (seed 1) and 64 long
+    reads of 5-20 kb (seed 3), with byte parity against the host oracle
+    on every 16th short read and on every long read;
+  * general path (`align -n 1 -m 10`: min_cnt=1, min_chain_score=10) on
+    the same index and reads, held against the oracle with
+    max_chain_skip past any window (the device DP scores the window
+    exactly), and required to emit secondary (tp:A:S) lines;
+  * hifi_k19 (lite, k=19, w=10): a 2 Mbp genome (seed 11) and 128 reads
+    of 2-4 kb at 1% error (seed 13), parity on all of them.
+
+Each phase's warm pass keeps the inputs its chain-DP launches got (one
+per kernel shape, band and anchor capacity); its timed passes count the
+launches per variant and shape. Afterwards each kernel is held bit for
+bit against its plain PyTorch version on those inputs, and the
+dynamic-window shape, which no mapping path launches, on the headline's
+inputs at window 128.
+
+Exits non-zero, printing no result, when any phase fails or CUDA is
+unavailable.
 
 Only the JAX-free host modules of minimap2_rs_tpu (config, oracle,
 utils, runtime) are imported, as the port itself does; the script
@@ -36,11 +51,13 @@ def _median(xs):
     return sorted(xs)[len(xs) // 2]
 
 
-def _time_ms(fn, reps: int = 5) -> float:
-    """Median of `reps` CUDA-event timings of fn() (after one warm-up)."""
+def _time_ms(fn, reps: int = 5, warm: bool = True) -> float:
+    """Median of `reps` CUDA-event timings of fn() (after one warm-up
+    unless the caller has just run it)."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     times = []
     for _ in range(reps):
         t0 = torch.cuda.Event(enable_timing=True)
@@ -53,73 +70,45 @@ def _time_ms(fn, reps: int = 5) -> float:
     return _median(times)
 
 
-def _first_batch_anchors(mapper, reads, bucket_filter):
-    """Anchors of the first batch the mapper would submit for the
-    bucket picked by bucket_filter, through the port's own front half.
-    Returns (chain args, window, A, B, reads in the batch)."""
+def _kernel_vs_plain(entries, tab, aux: bool, window=None, plain_reps: int = 5):
+    """torch.equal of kernel and plain outputs on every captured input
+    (entries: [(args, scalars, window)]; `window` overrides the captured
+    one), plus both times (ms, CUDA events, median) on the largest normal-
+    band launch, whose (B, A) is returned too. aux picks the variant:
+    (f, cnt, sq, sr) or (f, prev). Long shapes time the plain version
+    with fewer repeats."""
     import torch
 
-    from minimap2_rs_torch.models.mapper import LITE_WINDOW_CAP
-    from minimap2_rs_torch.models.stages import sketch_to_anchors, unpack_codes2, unpack_codes4
-    from minimap2_rs_torch.ops.finalize_ops import as_i32
+    from minimap2_rs_torch.kernels import chain_dp as kchain
+    from minimap2_rs_torch.ops import chain_ops
 
-    order = sorted(range(len(reads)), key=lambda i: len(reads[i][1]))
-    groups: dict = {}
-    for i in order:
-        b = next(b for b in mapper.buckets if len(reads[i][1]) <= b)
-        groups.setdefault(b, []).append(i)
-    bucket = bucket_filter(groups)
-    M, A, window, B_max = mapper._shapes_for(bucket, 1)
-    window = min(window, LITE_WINDOW_CAP)
-    chunk = groups[bucket][:B_max]
-    B = mapper._quantize_b(len(chunk), B_max)
-    lengths = torch.zeros(B, dtype=torch.int32)
-    lengths[: len(chunk)] = torch.tensor([len(reads[ri][1]) for ri in chunk])
-    wire_arr, nex, wire = mapper._encode([reads[ri][1] for ri in chunk], B, bucket)
-    dev = mapper.device
-    lengths = lengths.to(dev)
-    codes = torch.from_numpy(wire_arr).to(dev)
-    if wire == "2bit":
-        codes = unpack_codes2(codes, lengths, torch.from_numpy(nex).to(dev))
+    if aux:
+        fn, ref = kchain.chain_dp_aux_batch, chain_ops.chain_dp_aux_batch_ref
+        names = ("f", "cnt", "sq", "sr")
     else:
-        codes = unpack_codes4(codes)
-    anc = sketch_to_anchors(
-        mapper.dev_idx, codes, lengths, mapper.mid_occ, w=mapper.idx.w,
-        k=mapper.idx.k, q_occ_max=mapper.mp.q_occ_max,
-        q_occ_frac=mapper.mp.q_occ_frac, M=M, A=A,
-    )
-    args = tuple(
-        as_i32(t).contiguous()
-        for t in (anc["x_hi"], anc["x_lo"], anc["y_lo"], anc["y_hi"] & 0xFF)
-    )
-    return args, window, A, B, len(chunk)
-
-
-def _kernel_vs_plain(mapper, args, window, scalars_list):
-    """torch.equal of kernel and plain outputs on the same inputs, plus
-    both times (ms, CUDA events, median of 5) for the first band."""
-    import torch
-
-    from minimap2_rs_torch.kernels.chain_dp import chain_dp_aux_batch
-    from minimap2_rs_torch.ops.chain_ops import chain_dp_aux_batch_ref
-
-    tab = mapper._log2_tab
+        fn, ref = kchain.chain_dp_batch, chain_ops.chain_dp_batch_ref
+        names = ("f", "prev")
     err = 0
-    for scal in scalars_list:
-        got = chain_dp_aux_batch(*args, scal, window, tab)
-        want = chain_dp_aux_batch_ref(*args, scal, window, tab)
+    for args, scal, win in entries:
+        win = window or win
+        got = fn(*args, scal, win, tab)
+        want = ref(*args, scal, win, tab)
         torch.cuda.synchronize()
-        for name, g, w in zip(("f", "cnt", "sq", "sr"), got, want):
+        for name, g, w in zip(names, got, want):
             if not torch.equal(g, w):
                 bad = (g != w).nonzero()[:5].tolist()
                 raise AssertionError(
-                    f"kernel != plain on {name} (bw={scal.bw}) at {bad}"
+                    f"kernel != plain on {name} (bw={scal.bw}, A={args[0].shape[1]}) "
+                    f"at {bad}"
                 )
             err = max(err, int((g.long() - w.long()).abs().max()))
-    scal = scalars_list[0]
-    ms = _time_ms(lambda: chain_dp_aux_batch(*args, scal, window, tab))
-    plain_ms = _time_ms(lambda: chain_dp_aux_batch_ref(*args, scal, window, tab))
-    return err, ms, plain_ms
+    bw0 = entries[0][1].bw
+    args, scal, win = max((e for e in entries if e[1].bw == bw0),
+                          key=lambda e: e[0][0].numel())
+    win = window or win
+    ms = _time_ms(lambda: fn(*args, scal, win, tab))
+    plain_ms = _time_ms(lambda: ref(*args, scal, win, tab), reps=plain_reps)
+    return err, ms, plain_ms, tuple(args[0].shape)
 
 
 def _parity(tag, idx, sample, lines, cp, mp):
@@ -139,6 +128,104 @@ def _parity(tag, idx, sample, lines, cp, mp):
     return len(sample)
 
 
+def _agree(idx, sample, lines, cp, mp) -> int:
+    """Reads of `sample` whose lines equal the oracle's under cp."""
+    from minimap2_rs_tpu.oracle.pipeline import align_read
+
+    by_name: dict = {}
+    for l in lines:
+        by_name.setdefault(l.split("\t", 1)[0], []).append(l)
+    mid_occ = max(idx.calc_mid_occ(mp.frac_top_repetitive), mp.mid_occ_floor)
+    return sum(
+        by_name.get(n, []) == align_read(idx, n, s, cp, mp, mid_occ=mid_occ)
+        for n, s in sample
+    )
+
+
+def _count_where(lines, pred) -> int:
+    return sum(1 for l in lines if pred(l))
+
+
+def _is_secondary(line: str) -> bool:
+    return "\ttp:A:S\t" in line
+
+
+def _s2(line: str) -> int:
+    return int(line.split("\ts2:i:", 1)[1].split("\t", 1)[0])
+
+
+class _OracleRescues:
+    """Counts the oracle's wide-band rescue decisions while it runs: the
+    re-chain of rescue_long_join is the oracle's only call of
+    lchain.chain_dp_all at a band other than cp.bw."""
+
+    def __init__(self, cp):
+        self.bw, self.n = cp.bw, 0
+
+    def __enter__(self):
+        from minimap2_rs_tpu.oracle import lchain
+
+        self._orig = orig = lchain.chain_dp_all
+
+        def counted(anchors, p):
+            self.n += p.bw != self.bw
+            return orig(anchors, p)
+
+        lchain.chain_dp_all = counted
+        return self
+
+    def __exit__(self, *exc):
+        from minimap2_rs_tpu.oracle import lchain
+
+        lchain.chain_dp_all = self._orig
+
+
+def _map_phase(tag, mapper, reads, passes, key, total):
+    """One warm pass, which keeps the first chain-DP inputs of every
+    kernel shape and band, then `passes` timed passes with the launch
+    counts set to 0 just before them; the counts read just after are
+    added to `total`, and the phase fails unless `key` (variant/shape)
+    launched. Returns (PAF lines of the last pass, pass times, stats of
+    the last pass, captured inputs)."""
+    import torch
+
+    from minimap2_rs_torch.kernels import chain_dp as kchain
+
+    kchain.captured = captured = {}
+    t0 = time.perf_counter()
+    try:
+        mapper.map_reads_paf(reads)
+        torch.cuda.synchronize()
+    finally:
+        kchain.captured = None
+    print(f"{tag} warm pass {time.perf_counter() - t0:.3f} s")
+    times = []
+    kchain.reset_launches()
+    for _ in range(passes):
+        mapper.stats = {}
+        t0 = time.perf_counter()
+        blob = mapper.map_reads_paf(reads)
+        times.append(time.perf_counter() - t0)
+    launches = {k: v for k, v in kchain.launches.items() if v}
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    lines = blob.decode().split("\n")[:-1]
+    stats = dict(mapper.stats)
+    print(f"{tag} pass times (s): {[round(t, 4) for t in times]}; "
+          f"kernel launches over {passes} passes: {launches}")
+    print(f"{tag} stats (last pass): {json.dumps(stats, sort_keys=True)}")
+    if not launches.get(key):
+        raise AssertionError(f"[{tag}] the mapping path never launched {key}")
+    return lines, times, stats, captured
+
+
+def _launched(captured, key):
+    """The captured (args, scalars, window) of `key`, one per band and
+    anchor capacity A, in (bw, A) order."""
+    return [v for (k, _bw, _a), v in sorted(captured.items(), key=lambda kv: kv[0][1:])
+            if k == key]
+
+
 def main() -> int:
     import torch
 
@@ -146,14 +233,16 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
 
+    import dataclasses
+
     from minimap2_rs_tpu.config import ChainParams, IndexParams, MapParams
     from minimap2_rs_tpu.runtime.host import native_available
     from minimap2_rs_tpu.utils.seqsim import random_genome, simulate_reads
     from minimap2_rs_torch.kernels import build as kbuild
-    from minimap2_rs_torch.kernels import chain_dp as kchain
     from minimap2_rs_torch.models.index_builder import build_index_native
     from minimap2_rs_torch.models.mapper import Mapper
 
+    t_start = time.perf_counter()
     card = _nvidia_smi()
     print(card)
     nvcc = subprocess.run([kbuild._nvcc(), "--version"], capture_output=True,
@@ -166,101 +255,143 @@ def main() -> int:
     kbuild.library()
     print(f"kernel library built in {time.perf_counter() - t0:.1f} s")
     for line in kbuild.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
 
     # ---- set-up: 5 Mbp index on the card, reads ---------------------
     cp = ChainParams.defaults_for_k(15)
+    cp_gen = ChainParams.defaults_for_k(15, min_cnt=1, min_chain_score=10)
     mp = MapParams()
     t0 = time.perf_counter()
     genome = random_genome(5_000_000, seed=0)
     idx = build_index_native([("chrB", genome)], IndexParams())
     mapper = Mapper.from_oracle_index(idx, cp, mp, device="cuda", batch_size=1024)
+    gmapper = Mapper.from_oracle_index(idx, cp_gen, mp, device="cuda", batch_size=1024)
+    if not mapper._lite_eligible() or gmapper._lite_eligible():
+        raise AssertionError("the lite/general mappers took the wrong paths")
     reads = [(n, s) for n, s, *_ in simulate_reads(genome, 16384, read_len=(500, 1000), seed=1)]
     lreads = [(n, s) for n, s, *_ in simulate_reads(genome, 64, read_len=(5000, 20000), seed=3)]
     di = mapper.dev_idx
     print(f"set-up {time.perf_counter() - t0:.1f} s: {idx.keys.shape[0]} keys, "
           f"dm_entry={di.dm_entry} p={di.dm_bits} S={di.dm_slots}")
+    total: dict = {}  # main-path launches per variant/shape, all phases
 
-    # ---- kernel against its plain version ---------------------------
-    kernels = []
-    bands = [mapper._scalars, mapper._scalars_wide]
-    args, window, A, B, n = _first_batch_anchors(mapper, reads, lambda g: min(g))
-    err, ms, plain_ms = _kernel_vs_plain(mapper, args, window, bands)
-    print(f"chain kernel, headline batch B={B} A={A} window={window} (both bands equal): "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    kernels.append(dict(
-        name="chain_dp_aux (headline: A<1024, full window)", route="cuda",
-        source="minimap2_rs_torch/csrc/chain_dp.cu",
-        replaces="minimap2_rs_tpu/ops/chain_pallas.py:291",
-        launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-    ))
-    largs, lwindow, lA, lB, ln = _first_batch_anchors(
-        mapper, lreads, lambda g: max(g, key=lambda b: len(g[b]))
-    )
-    if lA < 1536 or lwindow >= lA:
-        raise AssertionError(f"long-read batch shape A={lA} window={lwindow}")
-    err, ms, plain_ms = _kernel_vs_plain(mapper, largs, lwindow, bands[:1])
-    print(f"chain kernel, long-read batch B={lB} ({ln} reads) A={lA} window={lwindow}: "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    kernels.append(dict(
-        name="chain_dp_aux (long reads: A>=1024, sliding window)", route="cuda",
-        source="minimap2_rs_torch/csrc/chain_dp.cu",
-        replaces="minimap2_rs_tpu/ops/chain_pallas.py:553",
-        launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-    ))
-
-    # ---- headline: 16,384 reads, 1 warm + 5 timed passes -------------
-    t0 = time.perf_counter()
-    mapper.map_reads_paf(reads)
-    torch.cuda.synchronize()
-    print(f"headline warm pass {time.perf_counter() - t0:.3f} s")
-    times = []
-    kchain.launches = 0
-    for _ in range(5):
-        mapper.stats = {}
-        t0 = time.perf_counter()
-        blob = mapper.map_reads_paf(reads)
-        times.append(time.perf_counter() - t0)
-    kernels[0]["launches"] = kchain.launches
-    stats = dict(mapper.stats)
-    lines = blob.decode().split("\n")[:-1]
+    # ---- lite headline: 16,384 reads, 1 warm + 5 timed passes --------
+    lines, times, stats, cap_lite = _map_phase("lite headline", mapper, reads, 5,
+                                               "chain_dp_aux/static", total)
     mapped = {l.split("\t", 1)[0] for l in lines}
     aligned_bp = sum(len(s) for n, s in reads if n in mapped)
     dt = _median(times)
-    print(f"headline pass times (s): {[round(t, 4) for t in times]}")
-    print(f"headline median pass {dt:.4f} s, aligned {aligned_bp / dt:.1f} bp/s, "
-          f"{len(lines)} PAF lines, chain kernel launches over 5 passes: {kchain.launches}")
-    print(f"headline stats (last pass): {json.dumps(stats, sort_keys=True)}")
-    if kchain.launches <= 0:
-        raise AssertionError("the mapping path never launched the chain kernel")
+    print(f"lite headline median pass {dt:.4f} s, aligned {aligned_bp / dt:.1f} bp/s, "
+          f"{len(lines)} PAF lines")
     if stats.get("host_reads", 0) >= 0.01 * len(reads):
         raise AssertionError(f"host fallback on {stats.get('host_reads')} reads (>= 1%)")
-    n_par = _parity("headline", idx, reads[::16], lines, cp, mp)
-    print(f"headline parity vs oracle: {n_par} reads byte-identical")
+    n_par = _parity("lite headline", idx, reads[::16], lines, cp, mp)
+    print(f"lite headline parity vs oracle: {n_par} reads byte-identical")
 
-    # ---- long reads: 64 reads of 5-20 kb ------------------------------
-    mapper.map_reads_paf(lreads)
-    torch.cuda.synchronize()
-    kchain.launches = 0
-    ltimes = []
-    for _ in range(3):
-        mapper.stats = {}
-        t0 = time.perf_counter()
-        lblob = mapper.map_reads_paf(lreads)
-        ltimes.append(time.perf_counter() - t0)
-    kernels[1]["launches"] = kchain.launches
-    llines = lblob.decode().split("\n")[:-1]
-    print(f"long-read pass times (s): {[round(t, 4) for t in ltimes]}, "
-          f"chain kernel launches over 3 passes: {kchain.launches}")
-    print(f"long-read stats (last pass): {json.dumps(mapper.stats, sort_keys=True)}")
-    if kchain.launches <= 0:
-        raise AssertionError("the long-read path never launched the chain kernel")
-    n_par = _parity("longread", idx, lreads, llines, cp, mp)
-    print(f"long-read parity vs oracle: {n_par} reads byte-identical")
+    # ---- lite long reads: 64 reads of 5-20 kb --------------------------
+    llines, _t, _s, cap_llong = _map_phase("lite long-read", mapper, lreads, 3,
+                                           "chain_dp_aux/lane", total)
+    n_par = _parity("lite longread", idx, lreads, llines, cp, mp)
+    print(f"lite long-read parity vs oracle: {n_par} reads byte-identical")
+
+    # ---- general headline: align -n 1 -m 10, 1 warm + 3 timed passes --
+    # the device DP scores the window exactly, so the gate is the oracle
+    # with max_chain_skip past any window; agreement with the default
+    # oracle is printed, not gated
+    cp_exact = dataclasses.replace(cp_gen, max_chain_skip=1 << 30)
+    glines, gtimes, gstats, cap_gen = _map_phase("general headline", gmapper, reads,
+                                                 3, "chain_dp/static", total)
+    n_sec = _count_where(glines, _is_secondary)
+    n_s2 = _count_where(glines, lambda l: _s2(l) > 0)
+    mapped = {l.split("\t", 1)[0] for l in glines}
+    aligned_bp = sum(len(s) for n, s in reads if n in mapped)
+    dt = _median(gtimes)
+    print(f"general headline median pass {dt:.4f} s, aligned {aligned_bp / dt:.1f} bp/s, "
+          f"{len(glines)} PAF lines, {n_sec} tp:A:S lines, {n_s2} lines with s2 > 0")
+    if n_sec == 0:
+        raise AssertionError("the general path emitted no secondary (tp:A:S) line")
+    if gstats.get("host_reads", 0) >= 0.01 * len(reads):
+        raise AssertionError(f"host fallback on {gstats.get('host_reads')} reads (>= 1%)")
+    sample = reads[::16]
+    with _OracleRescues(cp_gen) as resc_exact:
+        n_par = _parity("general headline", idx, sample, glines, cp_exact, mp)
+    print(f"general headline parity vs exact-window oracle: {n_par} reads byte-identical")
+    with _OracleRescues(cp_gen) as resc_default:
+        n_agree = _agree(idx, sample, glines, cp_gen, mp)
+    print(f"general headline sample equal to the default oracle: {n_agree} of {n_par} reads")
+    gmapper.stats = {}
+    gmapper.map_reads_paf(sample)
+    print(f"general headline rescue decisions on the {len(sample)} sampled reads: "
+          f"port {gmapper.stats.get('rescue_reads', 0)} (besides "
+          f"{gmapper.stats.get('host_reads', 0)} reads sent to the host pipeline), "
+          f"exact-window oracle {resc_exact.n}, default oracle {resc_default.n}")
+
+    # ---- general long reads ----------------------------------------------
+    gllines, _t, _s, cap_glong = _map_phase("general long-read", gmapper, lreads, 3,
+                                            "chain_dp/lane", total)
+    n_par = _parity("general longread", idx, lreads, gllines, cp_exact, mp)
+    print(f"general long-read parity vs exact-window oracle: {n_par} reads byte-identical")
+    print(f"general long reads equal to the default oracle: "
+          f"{_agree(idx, lreads, gllines, cp_gen, mp)} of {n_par} reads")
+
+    # ---- hifi_k19: lite path at k=19 -----------------------------------
+    t0 = time.perf_counter()
+    g19 = random_genome(2_000_000, seed=11)
+    idx19 = build_index_native([("chrH", g19)], IndexParams(w=10, k=19))
+    cp19 = ChainParams.defaults_for_k(19)
+    m19 = Mapper.from_oracle_index(idx19, cp19, mp, device="cuda", batch_size=1024)
+    r19 = [(n, s) for n, s, *_ in simulate_reads(g19, 128, read_len=(2000, 4000),
+                                                 error_rate=0.01, seed=13)]
+    print(f"hifi_k19 set-up {time.perf_counter() - t0:.1f} s: "
+          f"{idx19.keys.shape[0]} keys, dm_entry={m19.dev_idx.dm_entry}")
+    l19, _t, _s, cap_19 = _map_phase("hifi_k19", m19, r19, 1, "chain_dp_aux/static",
+                                     total)
+    n_par = _parity("hifi_k19", idx19, r19, l19, cp19, mp)
+    print(f"hifi_k19 parity vs oracle: {n_par} reads byte-identical, {len(l19)} PAF lines")
+    print(f"main-path launches per variant/shape, all phases: {total}")
+
+    # ---- kernels against their plain versions --------------------------
+    # on the inputs each path's warm pass gave its kernel, every band and
+    # anchor capacity it ran (hifi_k19's beside the lite headline's); the
+    # dynamic-window shape (A < 1024, window < A), which no mapper path
+    # launches, on the same inputs at window 128
+    src = "minimap2_rs_torch/csrc/chain_dp.cu"
+    pallas = "minimap2_rs_tpu/ops/chain_pallas.py"
+    tab = mapper._log2_tab
+    if not torch.equal(tab, m19._log2_tab):
+        raise AssertionError("the k=15 and k=19 mappers built different log2 tables")
+    cap_lite = {**cap_19, **cap_lite}  # the headline's entries win a clash
+    kernels = []
+    rows = [
+        ("chain_dp_aux (lite headline, hifi_k19)", 291, cap_lite, "chain_dp_aux/static",
+         None, 5),
+        ("chain_dp_aux (lite long reads)", 553, cap_llong, "chain_dp_aux/lane", None, 1),
+        ("chain_dp_aux (window 128)", 429, cap_lite, "chain_dp_aux/static", 128, 5),
+        ("chain_dp (general headline)", 290, cap_gen, "chain_dp/static", None, 5),
+        ("chain_dp (general long reads)", 552, cap_glong, "chain_dp/lane", None, 1),
+        ("chain_dp (window 128)", 428, cap_gen, "chain_dp/static", 128, 5),
+    ]
+    for name, line, cap, key, window, plain_reps in rows:
+        entries = _launched(cap, key)
+        variant = key.split("/")[0]
+        shapes = [(tuple(a[0].shape), s.bw, window or w) for a, s, w in entries]
+        held = f"{variant}/dynamic" if window else key
+        if window and min(sh[1] for sh, _b, _w in shapes) <= window:
+            raise AssertionError(f"{name}: window {window} is not below A")
+        err, ms, plain_ms, timed = _kernel_vs_plain(
+            entries, tab, variant == "chain_dp_aux", window, plain_reps)
+        print(f"{name}: (B, A), bw, window = {shapes}, all equal; timed at "
+              f"{timed}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        kernels.append(dict(
+            name=name, route="cuda", source=src, replaces=f"{pallas}:{line}",
+            launches=total.get(held, 0), max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            shape=held.split("/")[1], timed_at=timed, on_main_path=total.get(held, 0) > 0,
+        ))
 
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
+    print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

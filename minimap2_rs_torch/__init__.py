@@ -2,10 +2,12 @@
 
 The JAX package `minimap2_rs_tpu` stays the reference: every module here
 keeps the name of its JAX counterpart, and the tests hold each one
-against it bit for bit. This first slice covers the default "lite"
-mapping path (`models.mapper.Mapper.map_reads_paf`, odd k with
-2k+1 <= 32, non-HPC queries), with the chaining DP as a CUDA kernel
-written for Hopper (`csrc/chain_dp.cu`).
+against it bit for bit. The port covers both mapping paths of
+`models.mapper.Mapper.map_reads_paf`, the default "lite" path and the
+general path (min_cnt < 2: secondaries, s2, the host rescue decision),
+for odd k <= 27 and non-HPC queries, and the `align` command
+(`python -m minimap2_rs_torch.cli align`). The chaining DP is a CUDA
+kernel written for Hopper (`csrc/chain_dp.cu`) in two variants.
 
 The port imports torch and numpy and never jax. From the reference
 package it reuses only the JAX-free host modules: `config`, `oracle`,

@@ -68,15 +68,16 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.mm2t_chain_dp_aux.restype = ci
-        lib.mm2t_chain_dp_aux.argtypes = [
-            vp, vp, vp, vp,          # grp, rpos, qpos, span
-            vp, vp, vp, vp,          # f, cnt, sq, sr
-            vp, ci,                  # log2 table, its length
-            ci, ci, ci,              # B, A, H
-            ci, ci, ci,              # max_dist_x, max_dist_y, bw
-            cf, cf,                  # pen_gap, pen_skip
-            vp,                      # stream
-        ]
+        for fn, n_out in ((lib.mm2t_chain_dp_aux, 4), (lib.mm2t_chain_dp, 2)):
+            fn.restype = ci
+            fn.argtypes = [
+                vp, vp, vp, vp,      # grp, rpos, qpos, span
+                *[vp] * n_out,       # f, cnt, sq, sr / f, prev
+                vp, ci,              # log2 table, its length
+                ci, ci, ci,          # B, A, H
+                ci, ci, ci,          # max_dist_x, max_dist_y, bw
+                cf, cf,              # pen_gap, pen_skip
+                vp,                  # stream
+            ]
         _lib = lib
     return _lib

@@ -1,25 +1,57 @@
-"""Wrapper of the aux chain-DP kernel (csrc/chain_dp.cu).
+"""Wrappers of the chain-DP kernel's two variants (csrc/chain_dp.cu).
 
-Replaces minimap2_rs_tpu/ops/chain_pallas.py's `_static_aux_kernel`
-(A < 1024, full window) and `_chain_aux_kernel_lane` (A >= 1024, sliding
-window), both reached through chain_dp_aux_batch_pallas: one CUDA kernel
-with a runtime window H = min(window, A) covers both. It is bound by
-per-step latency and global-memory window reads, not FLOPs (one warp per
-read walks the sequential DP; see the source's header).
+`chain_dp_aux_batch` -> (f, cnt, sq, sr), the lite path's DP, entry point
+mm2t_chain_dp_aux. It replaces the aux kernels of
+minimap2_rs_tpu/ops/chain_pallas.py reached through
+chain_dp_aux_batch_pallas: `_static_aux_kernel` (A < 1024, full window),
+`_chain_aux_kernel` (A < 1024, truncated window) and
+`_chain_aux_kernel_lane` (A >= 1024).
 
-On CUDA tensors `chain_dp_aux_batch` launches the kernel or raises; on
-CPU tensors it runs the plain version, ops/chain_ops.chain_dp_aux_batch_ref.
+`chain_dp_batch` -> (f, prev), the general path's DP, entry point
+mm2t_chain_dp. It replaces the kernels reached through
+chain_dp_batch_pallas: `_static_kernel`, `_chain_kernel` and
+`_chain_kernel_lane`, at the same shapes.
+
+One template with a runtime window H = min(window, A) covers every
+shape. It is bound by per-step latency and global-memory window reads,
+not FLOPs (one warp per read walks the sequential DP; see the source's
+header). ptxas -v for sm_90a: 42 registers for the (f, prev) instance,
+48 for the aux one, no spills.
+
+On CUDA tensors each wrapper launches its kernel or raises; on CPU
+tensors it runs the plain version in ops/chain_ops.py. Launches are
+counted per variant and per the Pallas kernel's shape class.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops.chain_ops import ChainScalars, chain_dp_aux_batch_ref
+from ..ops.chain_ops import ChainScalars, chain_dp_aux_batch_ref, chain_dp_batch_ref
 
-# kernel launches made by chain_dp_aux_batch (the main path's proof that
-# it ran through the kernel); the plain version does not count
-launches = 0
+SHAPES = ("static", "dynamic", "lane")
+
+# kernel launches per "variant/shape" (the main path's proof that it ran
+# through each kernel at each shape); the plain versions do not count
+launches = {f"{v}/{s}": 0 for v in ("chain_dp_aux", "chain_dp") for s in SHAPES}
+# when a dict, each launch's inputs are kept under (variant/shape, bw, A),
+# the first launch of each key winning, so the kernel can be held against
+# its plain version at exactly the shapes a run gave it
+captured: dict | None = None
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def shape_class(A: int, window: int) -> str:
+    """The Pallas kernel a (B, A) call with this window stands for
+    (chain_dp_batch_pallas, chain_pallas.py:661-688): "lane" at
+    A >= 1024, "static" for a full window, else "dynamic"."""
+    if A >= 1024:
+        return "lane"
+    return "static" if window >= A else "dynamic"
 
 
 def _check(name: str, t: torch.Tensor, shape, dtype, device):
@@ -33,17 +65,10 @@ def _check(name: str, t: torch.Tensor, shape, dtype, device):
         raise ValueError(f"{name}: must be contiguous")
 
 
-def chain_dp_aux_batch(
-    grp: torch.Tensor,   # (B, A) int32 rev<<31|rid (padding -1)
-    rpos: torch.Tensor,  # (B, A) int32
-    qpos: torch.Tensor,  # (B, A) int32
-    span: torch.Tensor,  # (B, A) int32
-    scalars: ChainScalars,
-    window: int,
-    log2_tab: torch.Tensor,  # (>= bw + 1,) float32 on grp's device
-):
-    """(f, cnt, sq, sr), each (B, A) int32 — see chain_dp_aux_batch_ref."""
-    global launches
+def _run(variant: str, n_out: int, ref, grp, rpos, qpos, span,
+         scalars: ChainScalars, window: int, log2_tab: torch.Tensor):
+    """Validate, then the plain version on the CPU or one kernel launch
+    on CUDA; returns n_out (B, A) int32 tensors."""
     if grp.dim() != 2:
         raise ValueError(f"grp: expected (B, A), got shape {tuple(grp.shape)}")
     dev = grp.device
@@ -55,18 +80,18 @@ def chain_dp_aux_batch(
     if window < 1:
         raise ValueError("window must be >= 1")
     if dev.type == "cpu":
-        return chain_dp_aux_batch_ref(grp, rpos, qpos, span, scalars, window, log2_tab)
+        return ref(grp, rpos, qpos, span, scalars, window, log2_tab)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
 
     from .build import library
 
-    lib = library()
+    fn = getattr(library(), f"mm2t_{variant}")
     B, A = grp.shape
-    outs = [torch.empty((B, A), dtype=torch.int32, device=dev) for _ in range(4)]
+    outs = [torch.empty((B, A), dtype=torch.int32, device=dev) for _ in range(n_out)]
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = lib.mm2t_chain_dp_aux(
+        err = fn(
             grp.data_ptr(), rpos.data_ptr(), qpos.data_ptr(), span.data_ptr(),
             *(o.data_ptr() for o in outs),
             log2_tab.data_ptr(), log2_tab.shape[0],
@@ -76,6 +101,38 @@ def chain_dp_aux_batch(
             stream,
         )
     if err != 0:
-        raise RuntimeError(f"mm2t_chain_dp_aux launch failed: cudaError {err}")
-    launches += 1
+        raise RuntimeError(f"mm2t_{variant} launch failed: cudaError {err}")
+    key = f"{variant}/{shape_class(A, window)}"
+    launches[key] += 1
+    if captured is not None:
+        captured.setdefault((key, scalars.bw, A), (
+            tuple(t.clone() for t in (grp, rpos, qpos, span)), scalars, window))
     return tuple(outs)
+
+
+def chain_dp_aux_batch(
+    grp: torch.Tensor,   # (B, A) int32 rev<<31|rid (padding -1)
+    rpos: torch.Tensor,  # (B, A) int32
+    qpos: torch.Tensor,  # (B, A) int32
+    span: torch.Tensor,  # (B, A) int32
+    scalars: ChainScalars,
+    window: int,
+    log2_tab: torch.Tensor,  # (>= bw + 1,) float32 on grp's device
+):
+    """(f, cnt, sq, sr), each (B, A) int32 — see chain_dp_aux_batch_ref."""
+    return _run("chain_dp_aux", 4, chain_dp_aux_batch_ref, grp, rpos, qpos,
+                span, scalars, window, log2_tab)
+
+
+def chain_dp_batch(
+    grp: torch.Tensor,   # (B, A) int32 rev<<31|rid (padding -1)
+    rpos: torch.Tensor,  # (B, A) int32
+    qpos: torch.Tensor,  # (B, A) int32
+    span: torch.Tensor,  # (B, A) int32
+    scalars: ChainScalars,
+    window: int,
+    log2_tab: torch.Tensor,  # (>= bw + 1,) float32 on grp's device
+):
+    """(f, prev), each (B, A) int32 — see chain_dp_batch_ref."""
+    return _run("chain_dp", 2, chain_dp_batch_ref, grp, rpos, qpos, span,
+                scalars, window, log2_tab)

@@ -1,21 +1,26 @@
-"""The end-to-end mapper on the lite path, in PyTorch.
+"""The end-to-end mapper, in PyTorch.
 
-Counterpart of minimap2_rs_tpu/models/mapper.py (Mapper.map_reads_paf on
-the default lite path, mapper.py:565-668). Reads are bucketed by length
-into padded batches; one device program per batch runs the whole
-pipeline through on-device finalize (models/stages.py), and the host
-formats PAF from the 10-word wire rows with the native runtime. After
-the in-order drain come the lazy wide-band pass (long-read shapes), the
-4x-capacity tier for overflowed reads, and the host oracle pipeline for
-what is left.
+Counterpart of minimap2_rs_tpu/models/mapper.py (Mapper.map_reads_paf,
+mapper.py:565-668). Reads are bucketed by length into padded batches,
+and one device program per batch runs the pipeline. Two paths:
+
+  * lite (min_cnt >= 2, the default): the program runs through
+    on-device finalize (models/stages.py), and the host formats PAF
+    from the 10-word wire rows with the native runtime. After the
+    in-order drain come the lazy wide-band pass (long-read shapes), the
+    4x-capacity tier for overflowed reads, and the host oracle pipeline
+    for what is left.
+  * general (min_cnt < 2, or MM2T_NO_LITE): the program stops after the
+    (f, prev) chain DP and returns one int32 buffer of anchors, DP and
+    minimizers per read; the host backtracks, merges, selects chains
+    (secondaries, s2) and takes the rescue decision. Reads it rescues
+    re-run the chain DP at bw_long in one batched device pass; reads
+    that overflow their slots go to the host oracle pipeline.
 
 Submission runs on a background thread feeding the drain in order; on
 CUDA each batch goes up as a pinned 2-bit wire and comes back through a
 pinned buffer with a non-blocking copy and an event, so the host
 postprocess of batch i overlaps the device work of later batches.
-
-The general (non-lite) path — MM2T_NO_LITE or min_cnt < 2 — is not
-ported and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -30,20 +35,32 @@ import numpy as np
 import torch
 
 from minimap2_rs_tpu.config import ChainParams, MapParams
+from minimap2_rs_tpu.oracle import lchain as olchain
 from minimap2_rs_tpu.oracle import pipeline as opipeline
 from minimap2_rs_tpu.oracle.index import OracleIndex
+from minimap2_rs_tpu.oracle.paf import write_paf_many_with_scores
 from minimap2_rs_tpu.runtime.host import (
+    native_available,
+    native_backtrack,
     native_encode_pack2,
     native_encode_pack4,
     native_format_lite,
+    native_postprocess,
 )
 from minimap2_rs_tpu.utils.packing import nt4_encode
 
 from ..device import resolve_device
+from ..kernels.chain_dp import chain_dp_batch
 from ..ops.chain_ops import ChainScalars, chain_scalars_from_params, log2_table
-from ..ops.finalize_ops import FIELDS, WIRE_WORDS, unpack_fields_wire
+from ..ops.finalize_ops import FIELDS, WIRE_WORDS, as_i32, unpack_fields_wire
 from ..ops.index_ops import DeviceIndex
-from .stages import chain_finalize_lite, sketch_to_anchors, unpack_codes2, unpack_codes4
+from .stages import (
+    chain_finalize_lite,
+    chain_inputs,
+    sketch_to_anchors,
+    unpack_codes2,
+    unpack_codes4,
+)
 
 # per-batch capacity of the 2-bit wire's ambiguous-base exception list;
 # batches with more Ns take the 4-bit wire
@@ -54,10 +71,15 @@ _NEX_CAP = 2048
 _DUAL_BAND_MAX_A = 1024
 # anchor slots per device call (caps reads per call for long buckets)
 _SLOT_TARGET = 2 << 20
-# chain window cap (slots) at 1x capacity; reads whose truncated window
-# could lose a predecessor are flagged (win_ovf) and re-run at the full
-# window in the 4x tier
+# lite-path chain window cap (slots) at 1x capacity; reads whose
+# truncated window could lose a predecessor are flagged (win_ovf) and
+# re-run at the full window in the 4x tier. The general path runs the
+# full window, min(max_chain_iter, A).
 LITE_WINDOW_CAP = 1024
+
+
+def _combine64(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
+    return (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
 
 
 def _dv_from_fields(fields: np.ndarray, col: dict) -> np.ndarray:
@@ -75,6 +97,17 @@ def _dv_from_fields(fields: np.ndarray, col: dict) -> np.ndarray:
         np.float32(1.0) - frac ** (np.float32(1.0) / kf),
         np.float32(0.0),
     )
+
+
+def _codes_from_wire(codes, lengths, nex, wire: str) -> torch.Tensor:
+    """The H2D wire -> (B, L) int32 nt4 codes."""
+    if wire == "4bit":
+        codes = unpack_codes4(codes)
+    elif wire == "2bit":
+        codes = unpack_codes2(codes, lengths, nex)
+    if codes.shape[-1] > 1 << 22:
+        raise ValueError("reads longer than 4M bases are unsupported")
+    return codes
 
 
 def _fused_map_stage_lite(
@@ -96,12 +129,7 @@ def _fused_map_stage_lite(
 ) -> torch.Tensor:
     """The whole per-batch device pipeline (JAX _fused_map_stage_lite,
     mapper.py:160-219); returns the (B, 10) int32 wire rows."""
-    if wire == "4bit":
-        codes = unpack_codes4(codes)
-    elif wire == "2bit":
-        codes = unpack_codes2(codes, lengths, nex)
-    if codes.shape[-1] > 1 << 22:
-        raise ValueError("reads longer than 4M bases are unsupported")
+    codes = _codes_from_wire(codes, lengths, nex, wire)
     anc = sketch_to_anchors(
         dev_idx, codes, lengths, mid_occ, w=w, k=k,
         q_occ_max=q_occ_max, q_occ_frac=q_occ_frac, M=M, A=A,
@@ -112,6 +140,70 @@ def _fused_map_stage_lite(
         k=k, window=window, log2_tab=log2_tab,
         flag_window_ovf=flag_window_ovf, wide=wide,
     )
+
+
+def _fused_map_stage(
+    dev_idx: DeviceIndex,
+    codes: torch.Tensor,
+    lengths: torch.Tensor,
+    nex: torch.Tensor,
+    scalars: ChainScalars,
+    mid_occ: int,
+    log2_tab: torch.Tensor,
+    *,
+    w: int, k: int, q_occ_max: int, q_occ_frac: float,
+    M: int, A: int, window: int, wire: str,
+) -> torch.Tensor:
+    """The general path's per-batch device program (JAX _fused_map_stage,
+    mapper.py:79-149): wire unpack, sketch to anchors, the (f, prev)
+    chain DP, packed into ONE (B, 6A + M + 4) int32 buffer [x_hi | x_lo |
+    y_hi | y_lo | f | prev | cps | n_mini | n_anchors | mini_ovf |
+    anc_ovf] (uint32 words as their int32 bits), so each batch comes
+    back in one copy."""
+    codes = _codes_from_wire(codes, lengths, nex, wire)
+    anc = sketch_to_anchors(
+        dev_idx, codes, lengths, mid_occ, w=w, k=k,
+        q_occ_max=q_occ_max, q_occ_frac=q_occ_frac, M=M, A=A,
+    )
+    f, prev = chain_dp_batch(
+        *chain_inputs(anc["x_hi"], anc["x_lo"], anc["y_hi"], anc["y_lo"]),
+        scalars, window, log2_tab,
+    )
+    words = [as_i32(anc[c]) for c in ("x_hi", "x_lo", "y_hi", "y_lo")]
+    flags = [anc[c].to(torch.int32)[:, None]
+             for c in ("n_mini", "n_anchors", "mini_ovf", "anc_ovf")]
+    return torch.cat(words + [f, prev, as_i32(anc["cps"])] + flags, dim=1)
+
+
+def _packed_chain_stage(x_hi, x_lo, y_hi, y_lo, scalars: ChainScalars,
+                        window: int, log2_tab: torch.Tensor) -> torch.Tensor:
+    """The chain DP alone (the rescue re-run, lchain.rs:321-330; JAX
+    mapper.py:244-266) on (B, A) int32 anchor words, packed into one
+    (B, 2A) buffer [f | prev]."""
+    f, prev = chain_dp_batch(*chain_inputs(x_hi, x_lo, y_hi, y_lo),
+                             scalars, window, log2_tab)
+    return torch.cat([f, prev], dim=1)
+
+
+def _unpack_map_stage(packed: np.ndarray, M: int, A: int) -> dict:
+    """Host views of _fused_map_stage's buffer (JAX mapper.py:269-295)."""
+    cols = [
+        ("x_hi", A, np.uint32), ("x_lo", A, np.uint32),
+        ("y_hi", A, np.uint32), ("y_lo", A, np.uint32),
+        ("f", A, np.int32), ("prev", A, np.int32),
+        ("cps", M, np.uint32),
+        ("n_mini", 1, np.int32), ("n_anchors", 1, np.int32),
+        ("mini_ovf", 1, np.int32), ("anc_ovf", 1, np.int32),
+    ]
+    out = {}
+    off = 0
+    for name, width, dtype in cols:
+        v = packed[:, off : off + width].view(dtype)
+        out[name] = v[:, 0] if width == 1 else v
+        off += width
+    out["mini_ovf"] = out["mini_ovf"] != 0
+    out["anc_ovf"] = out["anc_ovf"] != 0
+    return out
 
 
 def _add_stats(dst: dict, key: str, v) -> None:
@@ -153,6 +245,7 @@ class Mapper:
         self._log2_tab = log2_table(max(self.cp.bw, self.cp.bw_long) + 1).to(self.device)
         self._tier2_queue: list = []
         self._wide_queue: list = []
+        self._rescue_queue: list = []
 
     @classmethod
     def from_oracle_index(cls, idx: OracleIndex, cp: ChainParams,
@@ -180,10 +273,7 @@ class Mapper:
     def map_reads_paf(self, reads: list[tuple[str, bytes]]) -> bytes:
         """Map reads; returns the PAF output as one newline-terminated
         bytes blob in input order."""
-        if not self._lite_eligible():
-            raise NotImplementedError(
-                "the general (non-lite) mapping path is not ported"
-            )
+        lite = self._lite_eligible()
         results: list = [None] * len(reads)
         order = sorted(range(len(reads)), key=lambda i: len(reads[i][1]))
         groups: dict[int, list[int]] = {}
@@ -203,6 +293,7 @@ class Mapper:
         # its own stats, merged after the join.
         self._tier2_queue = []
         self._wide_queue = []
+        self._rescue_queue = []
         q: queue.Queue = queue.Queue()
         err: list = []
         sub_stats: dict = {}
@@ -210,7 +301,7 @@ class Mapper:
         def _producer():
             t0 = time.perf_counter()
             try:
-                self._submit_groups(reads, groups, self._scalars, mult=1,
+                self._submit_groups(reads, groups, self._scalars, lite, mult=1,
                                     sink=q.put, stats=sub_stats)
             except BaseException as e:  # re-raised by the caller after join
                 err.append(e)
@@ -221,7 +312,7 @@ class Mapper:
         th = threading.Thread(target=_producer, daemon=True)
         th.start()
         try:
-            self._drain_pending(reads, iter(q.get, None), results)
+            self._drain_pending(reads, iter(q.get, None), results, lite)
         finally:
             th.join()
         for key, v in sub_stats.items():
@@ -230,15 +321,22 @@ class Mapper:
             raise err[0]
 
         # phase 2.2: rescue-flagged long-read-shape reads re-run with the
-        # bw_long scalars (single band)
+        # bw_long scalars (single band; lite path only)
         t4 = time.perf_counter()
         self._drain_wides_lite(reads, results)
         self._t("wide", time.perf_counter() - t4)
 
-        # phase 2.5: capacity-overflow reads re-run at 4x slots
+        # phase 2.5: capacity-overflow reads re-run at 4x slots (lite
+        # path only; the general path sends them to the host)
         t4 = time.perf_counter()
         self._drain_tier2(reads, results)
         self._t("tier2", time.perf_counter() - t4)
+
+        # phase 3: one batched wide-band re-chain of the reads the
+        # general path's host rescue decision queued
+        t4 = time.perf_counter()
+        self._drain_rescues(reads, results)
+        self._t("rescue", time.perf_counter() - t4)
 
         parts = [line for r in results if r for line in r]
         return b"\n".join(parts) + b"\n" if parts else b""
@@ -303,10 +401,12 @@ class Mapper:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
 
-    def _submit_groups(self, reads, groups, scalars, mult=None, band="auto",
-                       sink=None, stats=None):
+    def _submit_groups(self, reads, groups, scalars, lite=True, mult=None,
+                       band="auto", sink=None, stats=None):
         """groups: {bucket: [ri...]} with uniform `mult`, or
         {(bucket, mult): [ri...]} when mult is None.
+        lite: the lite program (else the general one, whose window is
+        never capped).
         band: "auto" applies _dual_band per bucket; "tier2" forces the
         dual-band program and routes residual overflow to the host;
         "widepass" is phase 2.2's single-band re-run.
@@ -324,7 +424,7 @@ class Mapper:
                 wide_prog, mode = False, "wide"
             else:
                 wide_prog, mode = False, "lazy"
-            if gmult == 1:
+            if lite and gmult == 1:
                 window = min(window, LITE_WINDOW_CAP)
             for c0 in range(0, len(idxs), B_max):
                 chunk = idxs[c0 : c0 + B_max]
@@ -338,18 +438,27 @@ class Mapper:
                            + (nex.nbytes if nex is not None else 0))
                 if nex is None:
                     nex = np.zeros(1, dtype=np.int32)
-                out = _fused_map_stage_lite(
-                    self.dev_idx, self._to_device(wire_arr),
-                    self._to_device(lengths), self._to_device(nex),
-                    scalars, self._scalars_wide, self.mid_occ, self._tlens_dev,
-                    self.cp.rmq_rescue_size, self.cp.rmq_rescue_ratio,
-                    self._log2_tab,
-                    w=self.idx.w, k=self.idx.k,
-                    q_occ_max=self.mp.q_occ_max, q_occ_frac=self.mp.q_occ_frac,
-                    M=M, A=A, window=window,
-                    flag_window_ovf=window < min(self.cp.max_chain_iter, A),
-                    wire=wire, wide=wide_prog,
+                d_wire, d_len, d_nex = (
+                    self._to_device(a) for a in (wire_arr, lengths, nex)
                 )
+                common = dict(w=self.idx.w, k=self.idx.k,
+                              q_occ_max=self.mp.q_occ_max,
+                              q_occ_frac=self.mp.q_occ_frac,
+                              M=M, A=A, window=window, wire=wire)
+                if lite:
+                    out = _fused_map_stage_lite(
+                        self.dev_idx, d_wire, d_len, d_nex,
+                        scalars, self._scalars_wide, self.mid_occ, self._tlens_dev,
+                        self.cp.rmq_rescue_size, self.cp.rmq_rescue_ratio,
+                        self._log2_tab,
+                        flag_window_ovf=window < min(self.cp.max_chain_iter, A),
+                        wide=wide_prog, **common,
+                    )
+                else:
+                    out = _fused_map_stage(
+                        self.dev_idx, d_wire, d_len, d_nex, scalars,
+                        self.mid_occ, self._log2_tab, **common,
+                    )
                 ready = None
                 if out.is_cuda:
                     # start the D2H copy now; the drain waits on the event
@@ -358,23 +467,28 @@ class Mapper:
                     ready = torch.cuda.Event()
                     ready.record()
                     out = host
-                entry = (chunk, out, ready, mode)
+                entry = (chunk, out, ready, mode, (M, A, window))
                 pending.append(entry)
                 if sink is not None:
                     sink(entry)
         return pending
 
-    def _drain_pending(self, reads, pending, results):
-        for chunk, out, ready, mode in pending:
+    def _drain_pending(self, reads, pending, results, lite=True):
+        for chunk, out, ready, mode, (M, A, window) in pending:
             t1 = time.perf_counter()
             if ready is not None:
                 ready.synchronize()
             fields = out.numpy()
             _add_stats(self.stats, "d2h_bytes", fields.nbytes)
-            if fields.shape[1] == WIRE_WORDS:
-                fields = unpack_fields_wire(fields)
-            t2 = time.perf_counter()
-            self._postprocess_lite(reads, chunk, fields, results, mode=mode)
+            if lite:
+                if fields.shape[1] == WIRE_WORDS:
+                    fields = unpack_fields_wire(fields)
+                t2 = time.perf_counter()
+                self._postprocess_lite(reads, chunk, fields, results, mode=mode)
+            else:
+                t2 = time.perf_counter()
+                self._postprocess(reads, chunk, _unpack_map_stage(fields, M, A),
+                                  results, window)
             t3 = time.perf_counter()
             self._t("d2h+wait", t2 - t1)
             self._t("post", t3 - t2)
@@ -520,6 +634,190 @@ class Mapper:
                 f"tp:A:P\tcm:i:{row[col['cm']]}\ts1:i:{s1}\ts2:i:0\t"
                 f"dv:f:{dv_list[bi]:.4f}\trl:i:0"
             ).encode()]
+
+    # ---- general path: host side -------------------------------------
+
+    def _postprocess(self, reads, chunk, out, results, window):
+        """Host backtrack, selection, rescue decision and PAF of the
+        general path's rows (JAX mapper.py:903-913): the native runtime's
+        one-call postprocess, or the Python version without it."""
+        if native_available():
+            return self._postprocess_native(reads, chunk, out, results)
+        return self._postprocess_python(reads, chunk, out, results, window)
+
+    def _read_anchors(self, out, bi: int) -> np.ndarray:
+        n = int(out["n_anchors"][bi])
+        return np.stack([
+            _combine64(out["x_hi"][bi, :n], out["x_lo"][bi, :n]),
+            _combine64(out["y_hi"][bi, :n], out["y_lo"][bi, :n]),
+        ], axis=1)
+
+    def _postprocess_native(self, reads, chunk, out, results):
+        """One native call per read: backtrack + merge + select + PAF
+        fields + dv (JAX mapper.py:915-956). Overflowed rows go to the
+        host pipeline; rows whose rescue flag fires queue for the
+        batched wide-band re-chain."""
+        for bi, ri in enumerate(chunk):
+            qname, qseq = reads[ri]
+            if out["mini_ovf"][bi] or out["anc_ovf"][bi]:
+                results[ri] = self._host_fallback(reads[ri])
+                continue
+            n = int(out["n_anchors"][bi])
+            if n == 0:
+                results[ri] = []
+                continue
+            anchors = self._read_anchors(out, bi)
+            nm = int(out["n_mini"][bi])
+            mini_pos = (out["cps"][bi, :nm] >> 1).astype(np.int32)
+            # queries are sketched non-HPC: every span is k
+            mini_span = np.full(nm, self.idx.k, dtype=np.int32)
+            recs, dv, s1, s2, rescue = native_postprocess(
+                anchors, out["f"][bi, :n], out["f"][bi, :n],
+                out["prev"][bi, :n].astype(np.int64), self.cp, len(qseq),
+                self.mp.mask_level, self.mp.pri_ratio, self.mp.best_n,
+                mini_pos, mini_span, self._tlens,
+            )
+            if rescue:
+                self._rescue_queue.append((ri, anchors, mini_pos, mini_span))
+                continue
+            results[ri] = self._format_lines(qname, len(qseq), recs, dv, s1, s2)
+
+    def _format_lines(self, qname, qlen, recs, dv, s1, s2) -> list[bytes]:
+        """PAF lines from native postprocess records (JAX mapper.py:958-974);
+        the first record is the primary."""
+        lines = []
+        for m in range(recs.shape[0]):
+            qs, qe, ts, te, cm, rid, rev, _pri, _sc = recs[m]
+            strand = "-" if rev else "+"
+            wqs, wqe = (qlen - qe, qlen - qs) if rev else (qs, qe)
+            tp = "P" if m == 0 else "S"
+            lines.append((
+                f"{qname}\t{qlen}\t{wqs}\t{wqe}\t{strand}\t"
+                f"{self._tnames[rid]}\t{self._tlens[rid]}\t{ts}\t{te}\t"
+                f"{max(qe - qs, 0)}\t{max(te - ts, 0)}\t{self.mp.mapq}\t"
+                f"tp:A:{tp}\tcm:i:{cm}\ts1:i:{s1}\ts2:i:{s2}\t"
+                f"dv:f:{dv[m]:.4f}\trl:i:0"
+            ).encode())
+        return lines
+
+    def _rechain_wide(self, x_hi, x_lo, y_hi, y_lo, window: int):
+        """The bw_long chain DP of (B, A) uint32 anchor words on the
+        device; returns host (f, prev) int32 arrays."""
+        A = x_hi.shape[1]
+        words = (self._to_device(np.ascontiguousarray(a).view(np.int32))
+                 for a in (x_hi, x_lo, y_hi, y_lo))
+        packed = _packed_chain_stage(*words, self._scalars_wide, window,
+                                     self._log2_tab).cpu().numpy()
+        return packed[:, :A], packed[:, A:]
+
+    def _drain_rescues(self, reads, results):
+        """Batched wide-band re-chaining of every queued rescue read
+        (JAX mapper.py:976-1019): one device pass per batch_size reads."""
+        rq = self._rescue_queue
+        self._rescue_queue = []
+        _add_stats(self.stats, "rescue_reads", len(rq))
+        if not rq:
+            return
+        p2 = dataclasses.replace(self.cp, bw=self.cp.bw_long)
+        A = max(128, -(-max(a.shape[0] for _, a, _m, _s in rq) // 128) * 128)
+        window = min(self.cp.max_chain_iter, A)
+        B = self.batch_size
+        for c0 in range(0, len(rq), B):
+            group = rq[c0 : c0 + B]
+            words = np.full((4, B, A), 0xFFFFFFFF, dtype=np.uint32)
+            for bi, (_ri, anchors, _mp, _ms) in enumerate(group):
+                n = anchors.shape[0]
+                for c in (0, 1):  # x, y -> (hi, lo) words
+                    words[2 * c, bi, :n] = anchors[:, c] >> np.uint64(32)
+                    words[2 * c + 1, bi, :n] = anchors[:, c] & np.uint64(0xFFFFFFFF)
+            f2, prev2 = self._rechain_wide(*words, window)
+            for bi, (ri, anchors, mini_pos, mini_span) in enumerate(group):
+                n = anchors.shape[0]
+                qname, qseq = reads[ri]
+                recs, dv, s1, s2, _ = native_postprocess(
+                    anchors, f2[bi, :n], f2[bi, :n], prev2[bi, :n].astype(np.int64),
+                    p2, len(qseq), self.mp.mask_level, self.mp.pri_ratio,
+                    self.mp.best_n, mini_pos, mini_span, self._tlens,
+                )
+                results[ri] = self._format_lines(qname, len(qseq), recs, dv, s1, s2)
+
+    def _postprocess_python(self, reads, chunk, out, results, window):
+        """The general host side without the native runtime (JAX
+        mapper.py:1021-1093): oracle backtrack, the rescue decision
+        (lchain.rs:321-326) with a per-batch wide-band re-chain, merge,
+        selection and the oracle PAF writer."""
+        rescue_rows = []
+        per_row: dict[int, tuple] = {}
+        for bi, ri in enumerate(chunk):
+            qname, qseq = reads[ri]
+            if out["mini_ovf"][bi] or out["anc_ovf"][bi]:
+                results[ri] = self._host_fallback(reads[ri])
+                continue
+            anchors = self._read_anchors(out, bi)
+            n = anchors.shape[0]
+            chains, scores = self._backtrack(
+                anchors, out["f"][bi, :n].astype(np.int64),
+                out["prev"][bi, :n].astype(np.int64), self.cp,
+            )
+            if not chains:
+                results[ri] = []
+                continue
+            per_row[bi] = (anchors, chains, scores)
+            best_cov = olchain.chain_query_coverage(anchors, chains[0])
+            uncovered = max(len(qseq) - best_cov, 0)
+            if uncovered > self.cp.rmq_rescue_size or np.float32(best_cov) < np.float32(
+                len(qseq)
+            ) * (np.float32(1.0) - np.float32(self.cp.rmq_rescue_ratio)):
+                rescue_rows.append(bi)
+
+        _add_stats(self.stats, "rescue_reads", len(rescue_rows))
+        if rescue_rows:
+            f2, prev2 = self._rechain_wide(out["x_hi"], out["x_lo"], out["y_hi"],
+                                           out["y_lo"], window)
+            p2 = dataclasses.replace(self.cp, bw=self.cp.bw_long)
+            for bi in rescue_rows:
+                anchors = per_row[bi][0]
+                n = anchors.shape[0]
+                chains, scores = self._backtrack(
+                    anchors, f2[bi, :n].astype(np.int64),
+                    prev2[bi, :n].astype(np.int64), p2,
+                )
+                per_row[bi] = (anchors, chains, scores)
+
+        for bi, (anchors, chains, scores) in per_row.items():
+            ri = chunk[bi]
+            qname, qseq = reads[ri]
+            merged = olchain.merge_adjacent_chains_with_gap(
+                anchors, chains, self.cp.max_dist_y, self.cp.max_dist_y
+            )
+            sel, _sc, _pri, s1, s2 = olchain.select_and_filter_chains(
+                anchors, merged, scores[: len(merged)],
+                self.mp.mask_level, self.mp.pri_ratio, self.mp.best_n,
+            )
+            results[ri] = [
+                line.encode()
+                for line in write_paf_many_with_scores(
+                    self.idx, anchors, sel, s1, s2, qname, qseq,
+                    mv=self._mv_list(out, bi),
+                )
+            ]
+
+    def _mv_list(self, out, bi) -> list[tuple[int, int]]:
+        """Device minimizers (position-sorted) as (key_span, pos<<1|strand)
+        pairs for the dv estimate, which reads only the span (the low 8
+        bits, always k for a non-HPC query) and the position
+        (paf.rs:158-159)."""
+        n = int(out["n_mini"][bi])
+        return [(self.idx.k, int(p)) for p in out["cps"][bi, :n]]
+
+    @staticmethod
+    def _backtrack(anchors, f, prev, cp):
+        """Chains and scores from (f, prev) (JAX mapper.py:1105-1115): the
+        native backtrack, or the oracle's without the native runtime."""
+        out = native_backtrack(anchors, f, None, prev, cp)
+        if out is not None:
+            return out
+        return olchain.backtrack(anchors, f, None, prev, cp)
 
     def _host_fallback(self, read) -> list[bytes]:
         """The reference-faithful host pipeline for one read."""

@@ -1,9 +1,10 @@
-"""Device pipeline stages of the lite mapping path, in PyTorch.
+"""Device pipeline stages of the mapping paths, in PyTorch.
 
 Counterpart of minimap2_rs_tpu/models/stages.py: wire unpack -> sketch
 -> minimizer compaction -> key sort -> occurrence filter -> index lookup
--> anchor expansion -> chain DP (the CUDA kernel on the card) ->
-on-device finalize -> 10-word wire rows.
+-> anchor expansion -> chain DP (the CUDA kernel on the card). The lite
+path goes on to on-device finalize and 10-word wire rows; the general
+path's program (models/mapper.py) returns the anchors and (f, prev).
 """
 
 from __future__ import annotations
@@ -86,6 +87,15 @@ def sketch_to_anchors(dev_idx: DeviceIndex, codes, lengths, mid_occ: int, *,
     return anc
 
 
+def chain_inputs(x_hi, x_lo, y_hi, y_lo):
+    """Anchor words (uint32 values in int64, or their int32 bits) -> the
+    chain DP's contiguous int32 (grp, rpos, qpos, span)."""
+    return tuple(
+        t.contiguous() for t in (as_i32(x_hi), as_i32(x_lo), as_i32(y_lo),
+                                 as_i32(y_hi & 0xFF))
+    )
+
+
 def _win_ovf(x_hi, x_lo, n_anchors, mdx: int, window: int):
     """Exact truncation detector: with anchors sorted by the 64-bit
     x = x_hi<<32|x_lo, a predecessor farther than `window` slots can
@@ -130,10 +140,7 @@ def chain_finalize_lite(
     B, A = x_hi.shape
     M = cps.shape[1]
     mini_pos = cps >> 1  # position-sorted; padding stays max
-    args = tuple(
-        t.contiguous() for t in (as_i32(x_hi), as_i32(x_lo), as_i32(y_lo),
-                                 as_i32(y_hi & 0xFF))
-    )
+    args = chain_inputs(x_hi, x_lo, y_hi, y_lo)
     fields = []
     for scal in (scalars, scalars_wide) if wide else (scalars,):
         f, cnt, sq, sr = chain_dp_aux_batch(*args, scal, window, log2_tab)

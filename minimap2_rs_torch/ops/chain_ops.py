@@ -1,15 +1,17 @@
-"""Chaining DP scalars and the plain PyTorch version of the aux chain DP.
+"""Chaining DP scalars and the plain PyTorch versions of the chain DP.
 
 Counterpart of minimap2_rs_tpu/ops/chain_ops.py. The exact-window
 colinear chaining DP (lchain.rs:74-91, without the max_chain_skip
 heuristic): for each anchor i take the best f[j] + comput_sc(i, j) over
 the admissible j in [max(0, i-H), i); ties go to the largest j; when the
-best does not beat span[i], f[i] = span[i] and i starts a chain. The
-aux form also carries (cnt, sq, sr) = (chain length, chain-start qpos,
-chain-start rpos) along the chosen predecessor, so the lite path never
-backtracks (ops/finalize_ops.py).
+best does not beat span[i], f[i] = span[i] and i starts a chain.
+`chain_dp_batch_ref` returns (f, prev) for the host backtrack of the
+general path; the aux form `chain_dp_aux_batch_ref` carries (cnt, sq,
+sr) = (chain length, chain-start qpos, chain-start rpos) along the
+chosen predecessor instead, so the lite path never backtracks
+(ops/finalize_ops.py). Both score the window with one helper.
 
-`chain_dp_aux_batch_ref` is the plain version of the CUDA kernel in
+They are the plain versions of the CUDA kernel's two variants in
 kernels/chain_dp.py: the CPU path, and the reference the kernel is held
 against on the card. Both read log2(dd+1) from the same host-built f32
 table of the oracle's mg_log2, so they compute the same numbers.
@@ -60,6 +62,82 @@ def log2_table(n: int) -> torch.Tensor:
     )
 
 
+def _dp_inputs(grp, rpos, qpos, span, scalars: ChainScalars, log2_tab):
+    """The (B, A) inputs as int64, the log2 table and the two f32
+    penalties on grp's device."""
+    if log2_tab.shape[0] <= scalars.bw:
+        raise ValueError("log2 table shorter than bw + 1")
+    dev = grp.device
+    pens = tuple(
+        torch.tensor(v, dtype=torch.float32, device=dev)
+        for v in (scalars.chn_pen_gap, scalars.chn_pen_skip)
+    )
+    cols = tuple(t.to(torch.int64) for t in (grp, rpos, qpos, span))
+    return cols, log2_tab.to(dev), pens
+
+
+def _window_best(g, rp, qp, sp, f, i: int, H: int, scalars: ChainScalars,
+                 tab: torch.Tensor, pens):
+    """The masked window score (comput_sc, lchain.rs:17-34) of anchor i
+    against its H predecessor slots, reduced to (best, jb) per read:
+    the best score (NEG_INF when no slot is admissible) and its slot,
+    ties to the largest j (lchain.rs:80-84 scans j descending and needs
+    strict improvement). Inputs are (B, A) int64; f holds rows < i."""
+    A = g.shape[1]
+    off = min(max(i - H, 0), A - H)
+    w = slice(off, off + H)
+    jr = torch.arange(off, off + H, device=g.device)
+    dq = qp[:, i : i + 1] - qp[:, w]
+    dr = rp[:, i : i + 1] - rp[:, w]
+    dd = (dr - dq).abs()
+    dg = torch.minimum(dr, dq)
+    p = scalars
+    ok = (
+        (jr < i)
+        & (g[:, w] == g[:, i : i + 1])
+        & (dq > 0) & (dq <= p.max_dist_x) & (dq <= p.max_dist_y)
+        & (dr != 0) & (dr <= p.max_dist_x)
+        & (dd <= p.bw)
+    )
+    span_w = sp[:, w]
+    sc = torch.minimum(span_w, dg)
+    # f32, one rounding per op as in oracle/lchain.py:78-80; the cast
+    # truncates toward zero like `as i32`
+    gap, skip = pens
+    lin = gap * dd.to(torch.float32) + skip * dg.to(torch.float32)
+    pen = (lin + 0.5 * tab[dd.clamp(0, tab.shape[0] - 1)]).to(torch.int64)
+    sc = torch.where((dd != 0) | (dg > span_w), sc - pen, sc)
+    scores = torch.where(ok, sc + f[:, w], NEG_INF)
+    best = scores.max(dim=1).values
+    jb = off + (H - 1) - scores.flip(1).argmax(dim=1)
+    return best, jb
+
+
+def chain_dp_batch_ref(
+    grp: torch.Tensor,   # (B, A) int32 rev<<31|rid (padding -1)
+    rpos: torch.Tensor,  # (B, A) int32
+    qpos: torch.Tensor,  # (B, A) int32
+    span: torch.Tensor,  # (B, A) int32
+    scalars: ChainScalars,
+    window: int,
+    log2_tab: torch.Tensor,  # (>= bw + 1,) float32, see log2_table
+):
+    """Returns (f, prev), each (B, A) int32 — the contract of the JAX
+    chain_dp_batch: prev is the chosen predecessor, or -1 where i starts
+    a chain. A Python loop over i, vectorised over the (B, H) window."""
+    (g, rp, qp, sp), tab, pens = _dp_inputs(grp, rpos, qpos, span, scalars, log2_tab)
+    B, A = grp.shape
+    H = min(window, A)
+    f = torch.zeros((B, A), dtype=torch.int64, device=grp.device)
+    prev = torch.full_like(f, -1)
+    for i in range(A):
+        best, jb = _window_best(g, rp, qp, sp, f, i, H, scalars, tab, pens)
+        win = best > sp[:, i]
+        f[:, i] = torch.where(win, best, sp[:, i])
+        prev[:, i] = torch.where(win, jb, -1)
+    return f.to(torch.int32), prev.to(torch.int32)
+
+
 def chain_dp_aux_batch_ref(
     grp: torch.Tensor,   # (B, A) int32 rev<<31|rid (padding -1)
     rpos: torch.Tensor,  # (B, A) int32
@@ -70,51 +148,18 @@ def chain_dp_aux_batch_ref(
     log2_tab: torch.Tensor,  # (>= bw + 1,) float32, see log2_table
 ):
     """Returns (f, cnt, sq, sr), each (B, A) int32 — the contract of the
-    JAX chain_dp_aux_batch. A Python loop over i, vectorised over the
-    (B, H) predecessor window; differences are taken in int64."""
+    JAX chain_dp_aux_batch: the DP of chain_dp_batch_ref, carrying the
+    chain statistics along the chosen predecessor instead of prev."""
+    (g, rp, qp, sp), tab, pens = _dp_inputs(grp, rpos, qpos, span, scalars, log2_tab)
     B, A = grp.shape
     H = min(window, A)
-    dev = grp.device
-    if log2_tab.shape[0] <= scalars.bw:
-        raise ValueError("log2 table shorter than bw + 1")
-    g, rp, qp, sp = (t.to(torch.int64) for t in (grp, rpos, qpos, span))
-    tab = log2_tab.to(dev)
-    t_hi = tab.shape[0] - 1
-    gap = torch.tensor(scalars.chn_pen_gap, dtype=torch.float32, device=dev)
-    skip = torch.tensor(scalars.chn_pen_skip, dtype=torch.float32, device=dev)
-    mdx, mdy, bw = scalars.max_dist_x, scalars.max_dist_y, scalars.bw
-    f = torch.zeros((B, A), dtype=torch.int64, device=dev)
+    f = torch.zeros((B, A), dtype=torch.int64, device=grp.device)
     cnt = torch.zeros_like(f)
     sq = torch.zeros_like(f)
     sr = torch.zeros_like(f)
-    rows = torch.arange(B, device=dev)
-    jr = torch.arange(H, device=dev)
+    rows = torch.arange(B, device=grp.device)
     for i in range(A):
-        off = min(max(i - H, 0), A - H)
-        w = slice(off, off + H)
-        dq = qp[:, i : i + 1] - qp[:, w]
-        dr = rp[:, i : i + 1] - rp[:, w]
-        dd = (dr - dq).abs()
-        dg = torch.minimum(dr, dq)
-        ok = (
-            (jr + off < i)
-            & (g[:, w] == g[:, i : i + 1])
-            & (dq > 0) & (dq <= mdx) & (dq <= mdy)
-            & (dr != 0) & (dr <= mdx)
-            & (dd <= bw)
-        )
-        span_w = sp[:, w]
-        sc = torch.minimum(span_w, dg)
-        # f32, one rounding per op as in oracle/lchain.py:78-80; the cast
-        # truncates toward zero like `as i32`
-        lin = gap * dd.to(torch.float32) + skip * dg.to(torch.float32)
-        pen = (lin + 0.5 * tab[dd.clamp(0, t_hi)]).to(torch.int64)
-        sc = torch.where((dd != 0) | (dg > span_w), sc - pen, sc)
-        scores = torch.where(ok, sc + f[:, w], NEG_INF)
-        best = scores.max(dim=1).values
-        # ties take the largest j (lchain.rs:80-84 scans j descending
-        # and needs strict improvement)
-        jb = off + (H - 1) - scores.flip(1).argmax(dim=1)
+        best, jb = _window_best(g, rp, qp, sp, f, i, H, scalars, tab, pens)
         win = best > sp[:, i]
         f[:, i] = torch.where(win, best, sp[:, i])
         cnt[:, i] = torch.where(win, cnt[rows, jb] + 1, 1)

@@ -1,25 +1,28 @@
-"""Batched minimizer sketch in PyTorch (odd k, 2k+1 <= 32, non-HPC).
+"""Batched minimizer sketch in PyTorch (odd k <= 27, non-HPC).
 
-Counterpart of minimap2_rs_tpu/ops/sketch.py's u32 fast path: the
-reference's per-base scan (sketch.rs:29-100) as masked elementwise work
-on (B, L) tensors — k-mers by log-step span doubling, hash64 on words
-that fit 32 bits, window-minimum folds, and the three exactness rules
-(completion-step ties, run-end drops, final emission) of
-sketch.py:290-351.
+Counterpart of minimap2_rs_tpu/ops/sketch.py (its u32 fast path for
+k <= 15 and its u64 path for larger k): the reference's per-base scan
+(sketch.rs:29-100) as masked elementwise work on (B, L) tensors —
+k-mers by log-step span doubling, hash64, window-minimum folds, and the
+three exactness rules (completion-step ties, run-end drops, final
+emission) of sketch.py:290-351.
 
-uint32 words are carried in int64 tensors; every key here is < 2^30
-(k <= 15), so no step needs wrap-around. Keys leave as one int64
-`key << 8 | span` word (KS_INVALID for invalid slots, which sorts last).
-Even k (the exact scan of sketch_scan.py), k > 15 (the u64 path) and
-HPC queries raise NotImplementedError.
+Every word lives in an int64 tensor. Canonical keys are < 2^54 and the
+comparison word key << 8 | span is < 2^62, so signed int64 orders them
+as the JAX package's uint64 pairs and needs no sign flip; hash64 drops
+the bits a left shift would push past the key mask before shifting, so
+no intermediate leaves int64. Keys leave as one `key << 8 | span` word
+(KS_INVALID for invalid slots, which sorts last). Even k (the exact scan
+of sketch_scan.py) and HPC queries raise NotImplementedError.
 """
 
 from __future__ import annotations
 
 import torch
 
-INV32 = 0xFFFFFFFF   # invalid key / position sentinel (uint32 max)
+INV32 = 0xFFFFFFFF   # invalid position sentinel (uint32 max)
 KS_INVALID = (1 << 63) - 1  # invalid key_span sentinel (int64 max)
+MAX_K = 27  # 2k + 8 <= 62: key << 8 | span stays a non-negative int64
 
 
 def _shift_right(a: torch.Tensor, t: int, fill) -> torch.Tensor:
@@ -43,21 +46,27 @@ def _shift_left(a: torch.Tensor, t: int, fill) -> torch.Tensor:
     return out
 
 
-def _hash64_u32(key: torch.Tensor, mask: int) -> torch.Tensor:
-    """hash64 (sketch.rs:4-13) for mask < 2^32: every +/<< is followed by
-    & mask, so int64 arithmetic gives the same low bits."""
-    key = (~key + (key << 21)) & mask
+def _hash64(key: torch.Tensor, mask: int) -> torch.Tensor:
+    """hash64 (sketch.rs:4-13) for mask < 2^62 on non-negative int64
+    words: each left shift first drops the bits it would push past the
+    mask, and every sum is masked, so int64 arithmetic gives the
+    reference's low bits without overflow."""
+
+    def shl(x, s):
+        return (x & (mask >> s)) << s
+
+    key = ((~key & mask) + shl(key, 21)) & mask
     key = key ^ (key >> 24)
-    key = (key + (key << 3) + (key << 8)) & mask
+    key = (key + shl(key, 3) + shl(key, 8)) & mask
     key = key ^ (key >> 14)
-    key = (key + (key << 2) + (key << 4)) & mask
+    key = (key + shl(key, 2) + shl(key, 4)) & mask
     key = key ^ (key >> 28)
-    key = (key + (key << 31)) & mask
+    key = (key + shl(key, 31)) & mask
     return key
 
 
-def kmer_keys32(codes: torch.Tensor, k: int):
-    """Canonical k-mer per position for 2k <= 31, by span doubling:
+def kmer_keys(codes: torch.Tensor, k: int):
+    """Canonical k-mer per position for 2k <= 62, by span doubling:
       fwd_{s+t}[i] = (fwd_s[i-t] << 2t) | (fwd_s[i] & (4^t-1))
       rev_{s+t}[i] = ((rev_s[i] >> 2(s-t)) << 2s) | rev_s[i-t]
     Returns (canon int64, strand bool, sym bool)."""
@@ -80,14 +89,15 @@ def kmer_keys32(codes: torch.Tensor, k: int):
     return torch.where(strand, rev, fwd), strand, sym
 
 
-def window_fold_min32(kv: torch.Tensor, idx: torch.Tensor, w: int):
+def window_fold_min(kv: torch.Tensor, idx: torch.Tensor, w: int):
     """(min key, newest tied index) over the w-window ending at each
-    position, by log-step folding (ties keep the newer window)."""
+    position, by log-step folding (ties keep the newer window); invalid
+    slots hold KS_INVALID."""
     wmin, widx = kv, idx
     span = 1
     while span < w:
         step = min(span, w - span)
-        sh = _shift_right(wmin, step, INV32)
+        sh = _shift_right(wmin, step, KS_INVALID)
         sh_idx = _shift_right(widx, step, -1)
         better = sh < wmin
         wmin = torch.where(better, sh, wmin)
@@ -104,9 +114,9 @@ def sketch_positions(codes: torch.Tensor, lengths: torch.Tensor, w: int, k: int,
     Returns (key_span (B, L) int64 = key<<8|k or KS_INVALID,
     pos_strand (B, L) int64 = pos<<1|strand or INV32, emitted (B, L)
     bool)."""
-    if is_hpc or k % 2 == 0 or 2 * k + 1 > 32:
+    if is_hpc or k % 2 == 0 or not 1 <= k <= MAX_K:
         raise NotImplementedError(
-            "sketch_positions is ported for odd k <= 15 without HPC only"
+            f"sketch_positions is ported for odd k <= {MAX_K} without HPC only"
         )
     B, L = codes.shape
     dev = codes.device
@@ -118,7 +128,7 @@ def sketch_positions(codes: torch.Tensor, lengths: torch.Tensor, w: int, k: int,
     last_bad = torch.where(~is_base, idx, -1).cummax(dim=1).values
     depth = idx - last_bad  # bases since reset
 
-    canon, strand, sym = kmer_keys32(torch.where(is_base, codes, 4), k)
+    canon, strand, sym = kmer_keys(torch.where(is_base, codes, 4), k)
     # l_eff: non-symmetric valid bases since the last reset
     cs = (is_base & ~sym).to(torch.int64).cumsum(dim=1)
     cs_at_bad = torch.where(~is_base, cs, -1).cummax(dim=1).values.clamp(min=0)
@@ -126,14 +136,16 @@ def sketch_positions(codes: torch.Tensor, lengths: torch.Tensor, w: int, k: int,
     kspan = depth.clamp(max=k)
 
     valid = is_base & ~sym & (l_eff >= k) & (kspan < 256)
-    key32 = _hash64_u32(canon, (1 << (2 * k)) - 1)
-    ksc = torch.where(valid, key32, INV32)
+    # every valid kspan is k (non-HPC), so the window comparisons on
+    # key << 8 | span order the slots as the bare keys
+    key = _hash64(canon, (1 << (2 * k)) - 1)
+    ksc = torch.where(valid, (key << 8) | kspan, KS_INVALID)
     pos_strand = torch.where(valid, (idx << 1) | strand.to(torch.int64), INV32)
 
-    wmin, widx = window_fold_min32(ksc, idx, w)
+    wmin, widx = window_fold_min(ksc, idx, w)
     if w > 1:
-        wmin1, widx1 = window_fold_min32(ksc, idx, w - 1)
-    valid_w = wmin != INV32
+        wmin1, widx1 = window_fold_min(ksc, idx, w - 1)
+    valid_w = wmin != KS_INVALID
 
     hit = (l_eff >= (w + k - 1)) & valid_w
 
@@ -148,9 +160,9 @@ def sketch_positions(codes: torch.Tensor, lengths: torch.Tensor, w: int, k: int,
         # [e-w+1, e-1], M its newest tie: ties of m1 except M are
         # emitted; emitted[M] = ks[e] > m1
         compl_e = l_eff == (w + k - 1)
-        m1 = _shift_right(wmin1, 1, INV32)
+        m1 = _shift_right(wmin1, 1, KS_INVALID)
         M = _shift_right(widx1, 1, -1)
-        m1_valid = compl_e & (m1 != INV32)
+        m1_valid = compl_e & (m1 != KS_INVALID)
         for d in range(1, min(w, L)):
             emitted[:, : L - d] |= (
                 m1_valid[:, d:]
@@ -183,8 +195,7 @@ def sketch_positions(codes: torch.Tensor, lengths: torch.Tensor, w: int, k: int,
     rows = torch.arange(B, device=dev)
     emitted[rows, fin_idx] |= fin_valid
 
-    ks = torch.where(valid, (key32 << 8) | k, KS_INVALID)
-    return ks, pos_strand, emitted
+    return ksc, pos_strand, emitted
 
 
 def compact_minimizers(ks: torch.Tensor, pos_strand: torch.Tensor,

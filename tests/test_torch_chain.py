@@ -1,7 +1,9 @@
-"""The port's plain chain DP (minimap2_rs_torch.ops.chain_ops) against the
-JAX package's scan formulation and its Pallas kernels (interpret mode on
-the CPU, as tests/test_chain_lane.py runs them). Exact equality: the DP
-is integer arithmetic plus a truncated f32 penalty."""
+"""The port's plain chain DPs (minimap2_rs_torch.ops.chain_ops), both the
+aux (f, cnt, sq, sr) and the (f, prev) form, against the JAX package's
+scan formulation and its Pallas kernels (interpret mode on the CPU, as
+tests/test_chain_lane.py runs them) at the static-sublane, lane and
+dynamic-sublane shapes. Exact equality: the DP is integer arithmetic
+plus a truncated f32 penalty."""
 
 import numpy as np
 import pytest
@@ -12,10 +14,15 @@ import jax.numpy as jnp  # noqa: E402
 
 from minimap2_rs_tpu.config import ChainParams  # noqa: E402
 from minimap2_rs_tpu.ops import chain_ops as jchain  # noqa: E402
-from minimap2_rs_tpu.ops.chain_pallas import chain_dp_aux_batch_pallas  # noqa: E402
-from minimap2_rs_torch.kernels.chain_dp import chain_dp_aux_batch  # noqa: E402
+from minimap2_rs_tpu.ops.chain_pallas import (  # noqa: E402
+    chain_dp_aux_batch_pallas,
+    chain_dp_batch_pallas,
+)
+from minimap2_rs_torch.kernels import chain_dp as kchain  # noqa: E402
+from minimap2_rs_torch.kernels.chain_dp import chain_dp_aux_batch, chain_dp_batch  # noqa: E402
 from minimap2_rs_torch.ops.chain_ops import (  # noqa: E402
     chain_dp_aux_batch_ref,
+    chain_dp_batch_ref,
     chain_scalars_from_params,
     log2_table,
 )
@@ -72,7 +79,13 @@ def _jax_args(arrs):
             jnp.asarray(qpos), jnp.asarray(span))
 
 
-@pytest.mark.parametrize("A,window", [(256, 256), (1024, 1024), (1024, 128)])
+# (A, window): the static sublane kernel (A < 1024, full window), the
+# lane kernel (A >= 1024) at a full and a sliding window, and the dynamic
+# sublane kernel (A < 1024, window < A)
+SHAPES = [(256, 256), (1024, 1024), (1024, 128), (256, 64)]
+
+
+@pytest.mark.parametrize("A,window", SHAPES)
 @pytest.mark.parametrize("bw", [CP.bw, CP.bw_long])
 def test_chain_ref_matches_jax_scan_and_pallas(A, window, bw):
     B = 8
@@ -90,6 +103,31 @@ def test_chain_ref_matches_jax_scan_and_pallas(A, window, bw):
         np.testing.assert_array_equal(g.numpy(), np.asarray(wp), err_msg=name)
     # the corpus really chains (cnt > 1 somewhere)
     assert (got[1].numpy() > 1).sum() > A
+
+
+@pytest.mark.parametrize("A,window", SHAPES)
+@pytest.mark.parametrize("bw", [CP.bw, CP.bw_long])
+def test_prev_ref_matches_jax_scan_and_pallas(A, window, bw):
+    """chain_dp_batch_ref's (f, prev) equals the JAX scan chain_dp_batch
+    and chain_dp_batch_pallas (_static_kernel, _chain_kernel_lane,
+    _chain_kernel by shape)."""
+    B = 8
+    arrs = chain_anchors(B, A, seed=A + window + bw + 1)
+    cp = ChainParams.defaults_for_k(15, bw=bw)
+    tab = log2_table(max(CP.bw, CP.bw_long) + 1)
+    got = chain_dp_batch_ref(*_torch_args(arrs), chain_scalars_from_params(cp),
+                             window, tab)
+    jscal = jchain.chain_scalars_from_params(cp)
+    want_scan = jchain.chain_dp_batch(*_jax_args(arrs), jscal, window)
+    want_pallas = chain_dp_batch_pallas(*_jax_args(arrs), jscal, window)
+    for name, g, ws, wp in zip(("f", "prev"), got, want_scan, want_pallas):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(ws), err_msg=name)
+        np.testing.assert_array_equal(g.numpy(), np.asarray(wp), err_msg=name)
+    prev = got[1].numpy()
+    # the corpus really chains, and padding rows start no chain
+    assert (prev >= 0).sum() > A
+    assert (prev[arrs[0] == -1] == -1).all()
 
 
 def test_wrapper_on_cpu_is_the_plain_version():
@@ -118,3 +156,58 @@ def test_chain_scalars_apply_the_max_dist_adjustment():
     assert (s.max_dist_x, s.max_dist_y, s.bw) == (20000, 20000, 20000)
     assert s.max_dist_x == int(j.max_dist_x) and s.max_dist_y == int(j.max_dist_y)
     assert np.float32(s.chn_pen_gap) == np.asarray(j.chn_pen_gap)
+
+
+def test_prev_wrapper_on_cpu_is_the_plain_version():
+    arrs = chain_anchors(4, 128, seed=6)
+    scal = chain_scalars_from_params(CP)
+    tab = log2_table(CP.bw_long + 1)
+    a = chain_dp_batch(*_torch_args(arrs), scal, 64, tab)
+    b = chain_dp_batch_ref(*_torch_args(arrs), scal, 64, tab)
+    assert len(a) == 2
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("A,window,want", [
+    (256, 256, "static"), (256, 5000, "static"), (256, 64, "dynamic"),
+    (1024, 128, "lane"), (2304, 2304, "lane"),
+])
+def test_shape_class_follows_the_pallas_dispatch(A, window, want):
+    assert kchain.shape_class(A, window) == want
+
+
+def test_cpu_calls_neither_count_nor_capture():
+    """Only a kernel launch counts; the plain version on the CPU does
+    not, and keeps no inputs."""
+    arrs = chain_anchors(2, 128, seed=9)
+    kchain.reset_launches()
+    kchain.captured = {}
+    try:
+        chain_dp_batch(*_torch_args(arrs), chain_scalars_from_params(CP), 128,
+                       log2_table(CP.bw_long + 1))
+        assert kchain.captured == {}
+    finally:
+        kchain.captured = None
+    assert set(kchain.launches) == {f"{v}/{s}" for v in ("chain_dp_aux", "chain_dp")
+                                    for s in kchain.SHAPES}
+    assert not any(kchain.launches.values())
+
+
+def test_prev_and_aux_forms_agree():
+    """Both plain versions run the same DP: equal f, and cnt/sq/sr follow
+    the prev pointers."""
+    arrs = chain_anchors(4, 192, seed=8)
+    scal = chain_scalars_from_params(CP)
+    tab = log2_table(CP.bw_long + 1)
+    f, prev = chain_dp_batch_ref(*_torch_args(arrs), scal, 192, tab)
+    f2, cnt, sq, _sr = chain_dp_aux_batch_ref(*_torch_args(arrs), scal, 192, tab)
+    assert torch.equal(f, f2)
+    qpos = torch.from_numpy(arrs[2])
+    rows = torch.arange(4)
+    for i in range(192):
+        p = prev[:, i]
+        has = p >= 0
+        want_cnt = torch.where(has, cnt[rows, p.clamp(min=0)] + 1, 1)
+        want_sq = torch.where(has, sq[rows, p.clamp(min=0)], qpos[:, i])
+        assert torch.equal(cnt[:, i], want_cnt) and torch.equal(sq[:, i], want_sq)

@@ -1,5 +1,5 @@
-"""The port never imports jax, and its kernel wrapper validates what it is
-given before any launch."""
+"""The port never imports jax, and its kernel wrappers validate what they
+are given before any launch."""
 
 import subprocess
 import sys
@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from minimap2_rs_torch.device import resolve_device
-from minimap2_rs_torch.kernels.chain_dp import chain_dp_aux_batch
+from minimap2_rs_torch.kernels.chain_dp import chain_dp_aux_batch, chain_dp_batch
 from minimap2_rs_torch.ops.chain_ops import ChainScalars, log2_table
 
 torch.set_num_threads(2)
@@ -24,6 +24,7 @@ def test_port_imports_no_jax():
     )
     mods = [m[: -len(".__init__")] if m.endswith(".__init__") else m for m in mods]
     assert "minimap2_rs_torch.models.mapper" in mods
+    assert "minimap2_rs_torch.cli" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -44,8 +45,10 @@ def _args(B=2, A=16):
     return [torch.zeros((B, A), dtype=torch.int32) for _ in range(4)]
 
 
-@pytest.mark.parametrize("bad", ["dtype", "noncontig", "shape", "ndim", "table"])
-def test_chain_wrapper_rejects_bad_inputs(bad):
+BAD = ["dtype", "noncontig", "shape", "ndim", "table"]
+
+
+def _rejects(wrapper, bad):
     args = _args()
     tab = log2_table(SCAL.bw + 1)
     if bad == "dtype":
@@ -59,7 +62,25 @@ def test_chain_wrapper_rejects_bad_inputs(bad):
     elif bad == "table":
         tab = log2_table(SCAL.bw)  # one entry short
     with pytest.raises((TypeError, ValueError)):
-        chain_dp_aux_batch(*args, SCAL, 8, tab)
+        wrapper(*args, SCAL, 8, tab)
+
+
+@pytest.mark.parametrize("bad", BAD)
+def test_chain_wrapper_rejects_bad_inputs(bad):
+    _rejects(chain_dp_aux_batch, bad)
+
+
+@pytest.mark.parametrize("bad", BAD)
+def test_prev_chain_wrapper_rejects_bad_inputs(bad):
+    _rejects(chain_dp_batch, bad)
+
+
+def test_wrappers_reject_other_devices():
+    args = [a.to("meta") for a in _args()]
+    tab = log2_table(SCAL.bw + 1).to("meta")
+    for wrapper in (chain_dp_aux_batch, chain_dp_batch):
+        with pytest.raises(ValueError, match="unsupported device"):
+            wrapper(*args, SCAL, 8, tab)
 
 
 def test_cuda_request_without_cuda_raises():

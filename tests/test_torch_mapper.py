@@ -1,7 +1,10 @@
 """End-to-end parity of the port's Mapper.map_reads_paf on the CPU: its
-PAF bytes must equal the JAX Mapper's and the host oracle pipeline's,
-including the 4x overflow tier, the device-resolved wide band, the lazy
-wide-band pass of long-read shapes and the host fallback."""
+PAF bytes must equal the JAX Mapper's and the host oracle pipeline's.
+The lite path: the 4x overflow tier, the device-resolved wide band, the
+lazy wide-band pass of long-read shapes and the host fallback. The
+general path (min_cnt < 2 or MM2T_NO_LITE): secondaries and s2 on a
+repeat, the host rescue decision and its batched wide-band re-chain,
+long-read shapes at the uncapped window, and the Python postprocess."""
 
 import numpy as np
 import pytest
@@ -79,16 +82,151 @@ def test_wire_fallbacks_equal_the_2bit_wire(small, monkeypatch, missing):
 
 
 def test_unported_paths_raise(small, monkeypatch):
+    """The general path (min_cnt=1, and MM2T_NO_LITE at the default
+    min_cnt) is ported: its PAF bytes equal the JAX Mapper's. An even-k
+    index (the exact scan sketch) still raises."""
     genome, idx, cp, mp = small
-    rl = _corpus(genome)[:2]
-    m = tmapper.Mapper.from_oracle_index(idx, ChainParams.defaults_for_k(K, min_cnt=1),
-                                         mp, device="cpu", **SMALL)
-    with pytest.raises(NotImplementedError):
-        m.map_reads_paf(rl)
+    rl = _corpus(genome)
+    cp1 = ChainParams.defaults_for_k(K, min_cnt=1)
+    m = tmapper.Mapper.from_oracle_index(idx, cp1, mp, device="cpu", **SMALL)
+    assert not m._lite_eligible()
+    blob = m.map_reads_paf(rl)
+    assert blob == JaxMapper.from_oracle_index(idx, cp1, mp, **SMALL).map_reads_paf(rl)
+    assert blob.count(b"\n") >= 10
     monkeypatch.setenv("MM2T_NO_LITE", "1")
     m = tmapper.Mapper.from_oracle_index(idx, cp, mp, device="cpu", **SMALL)
+    assert not m._lite_eligible()
+    blob = m.map_reads_paf(rl)
+    assert blob == JaxMapper.from_oracle_index(idx, cp, mp, **SMALL).map_reads_paf(rl)
+    assert blob.decode().split("\n")[:-1] == oracle_map(idx, rl, cp, mp)
+    monkeypatch.delenv("MM2T_NO_LITE")
+    idx16 = build_index([("chrA", genome[:20_000])], IndexParams(w=W, k=16))
+    m = tmapper.Mapper.from_oracle_index(idx16, ChainParams.defaults_for_k(16), mp,
+                                         device="cpu", **SMALL)
     with pytest.raises(NotImplementedError):
-        m.map_reads_paf(rl)
+        m.map_reads_paf(rl[:2])
+
+
+REPEAT = dict(buckets=(1024,), batch_size=32)
+CP_N1M10 = ChainParams.defaults_for_k(K, min_cnt=1, min_chain_score=10)
+
+
+@pytest.fixture(scope="module")
+def repeat():
+    """A 200 kb genome with a 3 kb segment duplicated 60 kb downstream,
+    w=5, k=11, and 25 reads."""
+    g = random_genome(200_000, seed=5)
+    g = g[:100_000] + g[40_000:43_000] + g[100_000:]
+    idx = build_index_native([("chrD", g)], IndexParams(w=W, k=K))
+    rl = [(n, s) for n, s, *_ in simulate_reads(g, 25, read_len=(500, 1000), seed=6)]
+    rl += [("dup", g[40_200:41_000]), ("dup_rc", revcomp(g[41_500:42_300]))]
+    return g, idx, rl
+
+
+def test_general_path_secondaries_equal_jax_and_oracle(repeat):
+    """align -n 1 -m 10 on a repeat: secondary lines and s2 > 0, equal to
+    the JAX Mapper and the oracle."""
+    _g, idx, rl = repeat
+    mp = MapParams()
+    port = tmapper.Mapper.from_oracle_index(idx, CP_N1M10, mp, device="cpu", **REPEAT)
+    blob = port.map_reads_paf(rl)
+    assert blob == JaxMapper.from_oracle_index(idx, CP_N1M10, mp, **REPEAT).map_reads_paf(rl)
+    lines = blob.decode().split("\n")[:-1]
+    assert lines == oracle_map(idx, rl, CP_N1M10, mp)
+    sec = [l for l in lines if "\ttp:A:S\t" in l]
+    assert sec and any(int(l.split("s2:i:")[1].split("\t")[0]) > 0 for l in lines)
+    dup = [l for l in lines if l.startswith("dup\t")]
+    assert len(dup) >= 2  # the segment maps to both copies
+    assert port.stats["rescue_reads"] > 0 and "rescue" in port.stats
+
+
+def test_general_python_postprocess_equals_native(repeat, monkeypatch):
+    """Without the native runtime the general host side runs in Python
+    (oracle backtrack, per-batch rescue re-chain): same bytes."""
+    _g, idx, rl = repeat
+    mp = MapParams()
+    port = tmapper.Mapper.from_oracle_index(idx, CP_N1M10, mp, device="cpu", **REPEAT)
+    native = port.map_reads_paf(rl)
+    monkeypatch.setattr(tmapper, "native_available", lambda: False)
+    monkeypatch.setattr(tmapper, "native_backtrack", lambda *a, **kw: None)
+    port.stats = {}
+    assert port.map_reads_paf(rl) == native
+    assert port.stats["rescue_reads"] > 0
+
+
+def test_general_rescue_decision_equals_jax():
+    """Chimeras (halves 100 kb apart) fire the host rescue decision at
+    -n 1; the batched bw_long re-chain (_drain_rescues) runs, and the
+    output equals the JAX Mapper's."""
+    g = random_genome(300_000, seed=52)
+    idx = build_index_native([("chrC", g)], IndexParams())
+    cp = ChainParams.defaults_for_k(15, min_cnt=1)
+    mp = MapParams()
+    rl = [(n, s) for n, s, *_ in simulate_reads(g, 24, read_len=(500, 1000), seed=53)]
+    rng = np.random.default_rng(54)
+    for ci in range(6):
+        a = int(rng.integers(0, 150_000))
+        rl.append((f"chim{ci}", g[a : a + 400] + g[a + 100_000 : a + 100_400]))
+    port = tmapper.Mapper.from_oracle_index(idx, cp, mp, device="cpu", **REPEAT)
+    blob = port.map_reads_paf(rl)
+    assert 0 < port.stats["rescue_reads"] < len(rl)
+    assert blob == JaxMapper.from_oracle_index(idx, cp, mp, **REPEAT).map_reads_paf(rl)
+
+
+def test_general_long_read_shape_uncapped_window(monkeypatch):
+    """At A >= 1024 the general path runs the full window
+    min(max_chain_iter, A), not the lite cap, and equals JAX."""
+    g = random_genome(400_000, seed=45)
+    idx = build_index_native([("chrL", g)], IndexParams())
+    cp = ChainParams.defaults_for_k(15, min_cnt=1)
+    mp = MapParams()
+    rl = [(n, s) for n, s, *_ in simulate_reads(g, 3, read_len=(5000, 8000), seed=46)]
+    rl.append(("lchim", g[9000:12_000] + g[309_000:312_000]))
+    kw = dict(buckets=(8192,), batch_size=8)
+    port = tmapper.Mapper.from_oracle_index(idx, cp, mp, device="cpu", **kw)
+    windows = []
+    stage = tmapper._fused_map_stage
+
+    def spy(*a, **k):
+        windows.append((k["A"], k["window"]))
+        return stage(*a, **k)
+
+    monkeypatch.setattr(tmapper, "_fused_map_stage", spy)
+    blob = port.map_reads_paf(rl)
+    assert windows and all(A >= 1024 and w == min(cp.max_chain_iter, A) > tmapper.LITE_WINDOW_CAP
+                           for A, w in windows)
+    assert blob == JaxMapper.from_oracle_index(idx, cp, mp, **kw).map_reads_paf(rl)
+    assert blob.count(b"\n") >= 4
+
+
+def test_lite_and_general_paths_agree(small, monkeypatch):
+    """At the default min_cnt the lite path and the general path give the
+    same bytes (tests/test_device_pipeline.py:63-77 for JAX)."""
+    genome, idx, cp, mp = small
+    rl = [(n, s) for n, s, *_ in simulate_reads(genome, 8, read_len=(150, 450), seed=17)]
+    m = tmapper.Mapper.from_oracle_index(idx, cp, mp, device="cpu", **SMALL)
+    assert m._lite_eligible()
+    lite = m.map_reads_paf(rl)
+    monkeypatch.setenv("MM2T_NO_LITE", "1")
+    assert not m._lite_eligible()
+    assert m.map_reads_paf(rl) == lite
+    assert lite.count(b"\n") >= 6
+
+
+def test_k19_map_equals_jax_and_oracle():
+    """k=19, w=10 (the map-hifi preset): the int64 sketch past k=15 and a
+    38-bit key table, through the port, JAX and the oracle."""
+    g = random_genome(200_000, seed=19)
+    idx = build_index_native([("chrK", g)], IndexParams(w=10, k=19))
+    cp = ChainParams.defaults_for_k(19)
+    mp = MapParams()
+    rl = [(n, s) for n, s, *_ in simulate_reads(g, 12, read_len=(500, 1000),
+                                                error_rate=0.01, seed=20)]
+    port = tmapper.Mapper.from_oracle_index(idx, cp, mp, device="cpu", **REPEAT)
+    blob = port.map_reads_paf(rl)
+    assert blob == JaxMapper.from_oracle_index(idx, cp, mp, **REPEAT).map_reads_paf(rl)
+    assert blob.decode().split("\n")[:-1] == oracle_map(idx, rl, cp, mp)
+    assert blob.count(b"\n") >= 10
 
 
 def test_overflow_tier_and_wide_band_parity():
