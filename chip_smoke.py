@@ -2,8 +2,10 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA chain-DP kernel (both variants) from
-minimap2_rs_torch/csrc and maps through the port's Mapper.map_reads_paf:
+Builds the port's CUDA kernels from minimap2_rs_torch/csrc (the chain
+DP's two variants with their pruned instances, and the window scan; one
+nvcc per source, in parallel) and maps through the port's
+Mapper.map_reads_paf:
 
   * lite path (default ChainParams, k=15): a 5 Mbp random genome
     (seed 0, w=10), 16,384 reads of 500-1000 bp (seed 1) and 64 long
@@ -14,14 +16,30 @@ minimap2_rs_torch/csrc and maps through the port's Mapper.map_reads_paf:
     max_chain_skip past any window (the device DP scores the window
     exactly), and required to emit secondary (tp:A:S) lines;
   * hifi_k19 (lite, k=19, w=10): a 2 Mbp genome (seed 11) and 128 reads
-    of 2-4 kb at 1% error (seed 13), parity on all of them.
+    of 2-4 kb at 1% error (seed 13), parity on all of them;
+  * even_k14: the same genome at w=10, k=14, 128 reads of 500-1000 bp
+    (seed 23) and 16 of 5-20 kb (seed 29): the exact-scan sketch through
+    the window-scan kernel at a short and a long bucket;
+  * hpc: the same genome indexed with flag=1 (k=15), 128 reads of
+    500-1000 bp (seed 17);
+  * skipprune: MM2T_SKIP_PRUNE=1 on the first 128 headline reads at
+    batch_size=128, lite and general (-n 1 -m 10), through the pruned
+    kernel instances, held against the default (pruning) oracle;
+  * device index build: build_index_device of the 5 Mbp genome on the
+    card at flag 0 and 1, equal to the native build;
+  * CLI: `index`, then `anchors` and `chain` with --engine device on one
+    long read at k=15 and k=14, equal to --engine host;
+  * extension: both banded extension functions on 64 random pairs, on
+    the card equal to the CPU.
+Every mapping phase is byte-identical to the host oracle (default
+parameters unless said otherwise).
 
-Each phase's warm pass keeps the inputs its chain-DP launches got (one
-per kernel shape, band and anchor capacity); its timed passes count the
-launches per variant and shape. Afterwards each kernel is held bit for
-bit against its plain PyTorch version on those inputs, and the
-dynamic-window shape, which no mapping path launches, on the headline's
-inputs at window 128.
+Each mapping phase's warm pass, and the CLI phase, keep the inputs their
+kernel launches got (one per kernel, shape class, band and capacity);
+the timed passes count the launches per kernel and shape. Afterwards each kernel is held bit
+for bit against its plain PyTorch version on those inputs (the window
+scan's long shape on 8 rows), and the dynamic-window shape, which no
+mapping path launches, on the headline's inputs at window 128.
 
 Exits non-zero, printing no result, when any phase fails or CUDA is
 unavailable.
@@ -33,10 +51,14 @@ asserts that jax was never loaded.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 
 def _nvidia_smi() -> str:
@@ -72,11 +94,11 @@ def _time_ms(fn, reps: int = 5, warm: bool = True) -> float:
 
 def _kernel_vs_plain(entries, tab, aux: bool, window=None, plain_reps: int = 5):
     """torch.equal of kernel and plain outputs on every captured input
-    (entries: [(args, scalars, window)]; `window` overrides the captured
-    one), plus both times (ms, CUDA events, median) on the largest normal-
-    band launch, whose (B, A) is returned too. aux picks the variant:
-    (f, cnt, sq, sr) or (f, prev). Long shapes time the plain version
-    with fewer repeats."""
+    (entries: [(args, scalars, window, max_chain_skip)]; `window`
+    overrides the captured one), plus both times (ms, CUDA events,
+    median) on the largest normal-band launch, whose (B, A) is returned
+    too. aux picks the variant: (f, cnt, sq, sr) or (f, prev). Long
+    shapes time the plain version with fewer repeats."""
     import torch
 
     from minimap2_rs_torch.kernels import chain_dp as kchain
@@ -89,10 +111,10 @@ def _kernel_vs_plain(entries, tab, aux: bool, window=None, plain_reps: int = 5):
         fn, ref = kchain.chain_dp_batch, chain_ops.chain_dp_batch_ref
         names = ("f", "prev")
     err = 0
-    for args, scal, win in entries:
+    for args, scal, win, skip in entries:
         win = window or win
-        got = fn(*args, scal, win, tab)
-        want = ref(*args, scal, win, tab)
+        got = fn(*args, scal, win, tab, skip)
+        want = ref(*args, scal, win, tab, max_chain_skip=skip)
         torch.cuda.synchronize()
         for name, g, w in zip(names, got, want):
             if not torch.equal(g, w):
@@ -103,12 +125,40 @@ def _kernel_vs_plain(entries, tab, aux: bool, window=None, plain_reps: int = 5):
                 )
             err = max(err, int((g.long() - w.long()).abs().max()))
     bw0 = entries[0][1].bw
-    args, scal, win = max((e for e in entries if e[1].bw == bw0),
-                          key=lambda e: e[0][0].numel())
+    args, scal, win, skip = max((e for e in entries if e[1].bw == bw0),
+                                key=lambda e: e[0][0].numel())
     win = window or win
-    ms = _time_ms(lambda: fn(*args, scal, win, tab))
-    plain_ms = _time_ms(lambda: ref(*args, scal, win, tab), reps=plain_reps)
+    ms = _time_ms(lambda: fn(*args, scal, win, tab, skip))
+    plain_ms = _time_ms(lambda: ref(*args, scal, win, tab, max_chain_skip=skip),
+                        reps=plain_reps)
     return err, ms, plain_ms, tuple(args[0].shape)
+
+
+def _scan_vs_plain(entries, max_rows=None):
+    """The window-scan kernel against its plain version on every captured
+    input (entries: [(args, w, k)], each cut to its first max_rows rows):
+    torch.equal, then both times (ms, CUDA events; the kernel the median
+    of 5, the plain loop one run) on the largest entry."""
+    import torch
+
+    from minimap2_rs_torch.kernels.window_scan import window_scan
+    from minimap2_rs_torch.ops.sketch_scan import _window_scan_ref
+
+    cut = [(tuple(a[:max_rows].contiguous() for a in args), w, k)
+           for args, w, k in entries]
+    for args, w, k in cut:
+        got = window_scan(*args[:4], w, k, args[4])
+        want = _window_scan_ref(*args[:4], w, k, args[4])
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            bad = (got != want).nonzero()[:5].tolist()
+            raise AssertionError(f"window_scan != plain (L={args[0].shape[1]}) at {bad}")
+    args, w, k = max(cut, key=lambda e: e[0][0].numel())
+    ms = _time_ms(lambda: window_scan(*args[:4], w, k, args[4]))
+    # the comparison above has just run the plain loop on these inputs
+    plain_ms = _time_ms(lambda: _window_scan_ref(*args[:4], w, k, args[4]), reps=1,
+                        warm=False)
+    return ms, plain_ms, tuple(args[0].shape)
 
 
 def _parity(tag, idx, sample, lines, cp, mp):
@@ -180,50 +230,83 @@ class _OracleRescues:
         lchain.chain_dp_all = self._orig
 
 
-def _map_phase(tag, mapper, reads, passes, key, total):
-    """One warm pass, which keeps the first chain-DP inputs of every
-    kernel shape and band, then `passes` timed passes with the launch
-    counts set to 0 just before them; the counts read just after are
-    added to `total`, and the phase fails unless `key` (variant/shape)
-    launched. Returns (PAF lines of the last pass, pass times, stats of
-    the last pass, captured inputs)."""
-    import torch
+def _kernel_modules():
+    from minimap2_rs_torch.kernels import chain_dp, window_scan
 
-    from minimap2_rs_torch.kernels import chain_dp as kchain
+    return chain_dp, window_scan
 
-    kchain.captured = captured = {}
-    t0 = time.perf_counter()
-    try:
-        mapper.map_reads_paf(reads)
-        torch.cuda.synchronize()
-    finally:
-        kchain.captured = None
-    print(f"{tag} warm pass {time.perf_counter() - t0:.3f} s")
-    times = []
-    kchain.reset_launches()
-    for _ in range(passes):
-        mapper.stats = {}
-        t0 = time.perf_counter()
-        blob = mapper.map_reads_paf(reads)
-        times.append(time.perf_counter() - t0)
-    launches = {k: v for k, v in kchain.launches.items() if v}
+
+def _counted(tag, fn, keys, total):
+    """Run fn() with every launch count set to 0 just before it and read
+    just after; the counts are added to `total`, and the run fails unless
+    each of `keys` (kernel/shape) launched. Returns (fn(), launches)."""
+    mods = _kernel_modules()
+    for m in mods:
+        m.reset_launches()
+    out = fn()
+    launches = {k: v for m in mods for k, v in m.launches.items() if v}
     for k, v in launches.items():
         total[k] = total.get(k, 0) + v
+    for key in keys:
+        if not launches.get(key):
+            raise AssertionError(f"[{tag}] the path never launched {key}")
+    return out, launches
+
+
+@contextlib.contextmanager
+def _capturing():
+    """While the block runs, every kernel wrapper keeps the inputs of its
+    first launch per kernel, shape class, band and capacity; yields the
+    dict that holds them once the block has ended."""
+    mods = _kernel_modules()
+    caps = [{} for _ in mods]
+    for m, c in zip(mods, caps):
+        m.captured = c
+    captured: dict = {}
+    try:
+        yield captured
+    finally:
+        for m, c in zip(mods, caps):
+            m.captured = None
+            captured.update(c)
+
+
+def _map_phase(tag, mapper, reads, passes, keys, total):
+    """One warm pass, which keeps the kernels' inputs (_capturing), then
+    `passes` timed passes whose launches are counted (_counted; `keys`
+    must launch). Returns (PAF lines of the last pass, pass times, stats
+    of the last pass, captured inputs)."""
+    import torch
+
+    t0 = time.perf_counter()
+    with _capturing() as captured:
+        mapper.map_reads_paf(reads)
+        torch.cuda.synchronize()
+    print(f"{tag} warm pass {time.perf_counter() - t0:.3f} s")
+    times = []
+
+    def passes_():
+        for _ in range(passes):
+            mapper.stats = {}
+            t0 = time.perf_counter()
+            blob = mapper.map_reads_paf(reads)
+            times.append(time.perf_counter() - t0)
+        return blob
+
+    blob, launches = _counted(tag, passes_, keys, total)
     lines = blob.decode().split("\n")[:-1]
     stats = dict(mapper.stats)
     print(f"{tag} pass times (s): {[round(t, 4) for t in times]}; "
           f"kernel launches over {passes} passes: {launches}")
     print(f"{tag} stats (last pass): {json.dumps(stats, sort_keys=True)}")
-    if not launches.get(key):
-        raise AssertionError(f"[{tag}] the mapping path never launched {key}")
     return lines, times, stats, captured
 
 
 def _launched(captured, key):
-    """The captured (args, scalars, window) of `key`, one per band and
-    anchor capacity A, in (bw, A) order."""
-    return [v for (k, _bw, _a), v in sorted(captured.items(), key=lambda kv: kv[0][1:])
-            if k == key]
+    """The captured inputs of `key`, one per band and anchor capacity A
+    in (bw, A) order (chain DP), or one per length L (window scan)."""
+    return [v for k, v in sorted(captured.items(), key=lambda kv: kv[0][1:])
+            if k[0] == key]
 
 
 def main() -> int:
@@ -235,11 +318,14 @@ def main() -> int:
 
     import dataclasses
 
+    import numpy as np
+
     from minimap2_rs_tpu.config import ChainParams, IndexParams, MapParams
     from minimap2_rs_tpu.runtime.host import native_available
     from minimap2_rs_tpu.utils.seqsim import random_genome, simulate_reads
     from minimap2_rs_torch.kernels import build as kbuild
-    from minimap2_rs_torch.models.index_builder import build_index_native
+    from minimap2_rs_torch import cli as tcli
+    from minimap2_rs_torch.models.index_builder import build_index_device, build_index_native
     from minimap2_rs_torch.models.mapper import Mapper
 
     t_start = time.perf_counter()
@@ -278,7 +364,7 @@ def main() -> int:
 
     # ---- lite headline: 16,384 reads, 1 warm + 5 timed passes --------
     lines, times, stats, cap_lite = _map_phase("lite headline", mapper, reads, 5,
-                                               "chain_dp_aux/static", total)
+                                               ["chain_dp_aux/static"], total)
     mapped = {l.split("\t", 1)[0] for l in lines}
     aligned_bp = sum(len(s) for n, s in reads if n in mapped)
     dt = _median(times)
@@ -291,7 +377,7 @@ def main() -> int:
 
     # ---- lite long reads: 64 reads of 5-20 kb --------------------------
     llines, _t, _s, cap_llong = _map_phase("lite long-read", mapper, lreads, 3,
-                                           "chain_dp_aux/lane", total)
+                                           ["chain_dp_aux/lane"], total)
     n_par = _parity("lite longread", idx, lreads, llines, cp, mp)
     print(f"lite long-read parity vs oracle: {n_par} reads byte-identical")
 
@@ -301,7 +387,7 @@ def main() -> int:
     # oracle is printed, not gated
     cp_exact = dataclasses.replace(cp_gen, max_chain_skip=1 << 30)
     glines, gtimes, gstats, cap_gen = _map_phase("general headline", gmapper, reads,
-                                                 3, "chain_dp/static", total)
+                                                 3, ["chain_dp/static"], total)
     n_sec = _count_where(glines, _is_secondary)
     n_s2 = _count_where(glines, lambda l: _s2(l) > 0)
     mapped = {l.split("\t", 1)[0] for l in glines}
@@ -329,7 +415,7 @@ def main() -> int:
 
     # ---- general long reads ----------------------------------------------
     gllines, _t, _s, cap_glong = _map_phase("general long-read", gmapper, lreads, 3,
-                                            "chain_dp/lane", total)
+                                            ["chain_dp/lane"], total)
     n_par = _parity("general longread", idx, lreads, gllines, cp_exact, mp)
     print(f"general long-read parity vs exact-window oracle: {n_par} reads byte-identical")
     print(f"general long reads equal to the default oracle: "
@@ -345,11 +431,127 @@ def main() -> int:
                                                  error_rate=0.01, seed=13)]
     print(f"hifi_k19 set-up {time.perf_counter() - t0:.1f} s: "
           f"{idx19.keys.shape[0]} keys, dm_entry={m19.dev_idx.dm_entry}")
-    l19, _t, _s, cap_19 = _map_phase("hifi_k19", m19, r19, 1, "chain_dp_aux/static",
+    l19, _t, _s, cap_19 = _map_phase("hifi_k19", m19, r19, 1, ["chain_dp_aux/static"],
                                      total)
     n_par = _parity("hifi_k19", idx19, r19, l19, cp19, mp)
     print(f"hifi_k19 parity vs oracle: {n_par} reads byte-identical, {len(l19)} PAF lines")
-    print(f"main-path launches per variant/shape, all phases: {total}")
+
+    # ---- even_k14: the exact-scan sketch through the window scan -------
+    t0 = time.perf_counter()
+    idx14 = build_index_native([("chrE", g19)], IndexParams(w=10, k=14))
+    cp14 = ChainParams.defaults_for_k(14)
+    m14 = Mapper.from_oracle_index(idx14, cp14, mp, device="cuda", batch_size=1024)
+    r14 = [(n, s) for n, s, *_ in simulate_reads(g19, 128, read_len=(500, 1000), seed=23)]
+    r14 += [(f"long_{n}", s) for n, s, *_ in simulate_reads(
+        g19, 16, read_len=(5000, 20000), seed=29)]
+    print(f"even_k14 set-up {time.perf_counter() - t0:.1f} s: {idx14.keys.shape[0]} keys")
+    l14, _t, _s, cap_14 = _map_phase(
+        "even_k14", m14, r14, 1,
+        ["window_scan/short", "window_scan/long", "chain_dp_aux/static",
+         "chain_dp_aux/lane"], total)
+    n_par = _parity("even_k14", idx14, r14, l14, cp14, mp)
+    print(f"even_k14 parity vs oracle: {n_par} reads byte-identical, {len(l14)} PAF lines")
+
+    # ---- hpc: an HPC index (queries stay non-HPC, seeds.rs:7-11) --------
+    t0 = time.perf_counter()
+    idx_hpc = build_index_native([("chrP", g19)], IndexParams(w=10, k=15, flag=1))
+    m_hpc = Mapper.from_oracle_index(idx_hpc, cp, mp, device="cuda", batch_size=1024)
+    r_hpc = [(n, s) for n, s, *_ in simulate_reads(g19, 128, read_len=(500, 1000), seed=17)]
+    print(f"hpc set-up {time.perf_counter() - t0:.1f} s: {idx_hpc.keys.shape[0]} keys")
+    l_hpc, _t, _s, _c = _map_phase("hpc", m_hpc, r_hpc, 1, ["chain_dp_aux/static"], total)
+    n_par = _parity("hpc", idx_hpc, r_hpc, l_hpc, cp, mp)
+    print(f"hpc parity vs oracle: {n_par} reads byte-identical, {len(l_hpc)} PAF lines")
+
+    # ---- skipprune: the pruned kernel instances, both paths -------------
+    # held against the default oracle, which always prunes
+    r_sp = reads[:128]
+    os.environ["MM2T_SKIP_PRUNE"] = "1"
+    try:
+        m_sp = Mapper.from_oracle_index(idx, cp, mp, device="cuda", batch_size=128)
+        gm_sp = Mapper.from_oracle_index(idx, cp_gen, mp, device="cuda", batch_size=128)
+        l_sp, _t, _s, cap_sp = _map_phase("skipprune lite", m_sp, r_sp, 1,
+                                          ["chain_dp_aux_prune/static"], total)
+        gl_sp, _t, _s, cap_gsp = _map_phase("skipprune general", gm_sp, r_sp, 1,
+                                            ["chain_dp_prune/static"], total)
+    finally:
+        del os.environ["MM2T_SKIP_PRUNE"]
+    n_par = _parity("skipprune lite", idx, r_sp, l_sp, cp, mp)
+    n_gpar = _parity("skipprune general", idx, r_sp, gl_sp, cp_gen, mp)
+    print(f"skipprune parity vs the default oracle: lite {n_par}, general {n_gpar} reads "
+          f"byte-identical ({len(l_sp)} and {len(gl_sp)} PAF lines)")
+
+    # ---- device index build of the 5 Mbp genome ---------------------------
+    for flag in (0, 1):
+        params = IndexParams(flag=flag)
+        t0 = time.perf_counter()
+        ref_idx = idx if flag == 0 else build_index_native([("chrB", genome)], params)
+        t_native = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        d_idx = build_index_device([("chrB", genome)], params, device="cuda")
+        t_dev = time.perf_counter() - t0
+        for name in ("keys", "starts", "counts", "positions"):
+            if not np.array_equal(getattr(d_idx, name), getattr(ref_idx, name)):
+                raise AssertionError(f"device index build (flag={flag}) != native on {name}")
+        print(f"device index build, 5 Mbp, flag={flag}: {t_dev:.3f} s on the card "
+              f"(native build {t_native:.3f} s{'' if flag else ', timed at set-up'}); "
+              f"{d_idx.keys.shape[0]} keys, all four arrays equal to the native build")
+
+    # ---- CLI: index, then anchors / chain, device against host ----------
+    cli_dir = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    cli_dir.mkdir(parents=True, exist_ok=True)
+    ref_fa, qry_fa = cli_dir / "ref.fa", cli_dir / "read.fa"
+    ref_fa.write_bytes(b">chrH\n" + g19 + b"\n")
+    cli_read = simulate_reads(g19, 1, read_len=(6000, 8000), seed=31)[0][1]
+    qry_fa.write_bytes(b">long_read\n" + cli_read + b"\n")
+
+    def cli(*argv) -> str:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            if tcli.main([str(a) for a in argv]) != 0:
+                raise AssertionError(f"CLI {argv} failed")
+        return buf.getvalue()
+
+    def cli_device():
+        for k in (15, 14):
+            mmi = cli_dir / f"ref_k{k}.mmi"
+            cli("index", ref_fa, "-k", k, "-d", mmi)
+            for cmd in ("anchors", "chain"):
+                out = {e: cli(cmd, mmi, qry_fa, "-k", k, "--engine", e)
+                       for e in ("device", "host")}
+                if out["device"] != out["host"]:
+                    raise AssertionError(f"CLI {cmd} k={k}: device != host:\n"
+                                         f"{out['device']}\n{out['host']}")
+                print(f"CLI {cmd} k={k} --engine device == host: "
+                      f"{out['device'].splitlines()[0]}")
+
+    # the 6-8 kb read is a long window-scan row at k=14; chain runs the
+    # pruned (f, prev) instance at whatever shape its anchor count gives
+    with _capturing() as cap_cli:
+        _none, cli_launches = _counted("CLI", cli_device, ["window_scan/long"], total)
+    if not any(k.startswith("chain_dp_prune/") for k in cli_launches):
+        raise AssertionError("[CLI] chain --engine device never launched chain_dp_prune")
+    print(f"CLI kernel launches: {cli_launches}")
+
+    # ---- extension: 64 random pairs, on the card against the CPU ----------
+    from minimap2_rs_torch.ops import extend_ops
+
+    rng = np.random.default_rng(37)
+    q = rng.integers(0, 4, size=(64, 256)).astype(np.int32)
+    r = np.concatenate([q, rng.integers(0, 4, size=(64, 16))], axis=1).astype(np.int32)
+    mut = rng.random(r.shape) < 0.08
+    r[mut] = rng.integers(0, 4, size=int(mut.sum()))
+    qlen = rng.integers(128, 257, size=64).astype(np.int32)
+    rlen = np.clip(qlen + rng.integers(-12, 13, size=64), 0, 272).astype(np.int32)
+    host = tuple(map(torch.from_numpy, (q, qlen, r, rlen)))
+    card = tuple(t.cuda() for t in host)
+    for fn in (extend_ops.banded_edit_batch, extend_ops.banded_affine_extend):
+        got, want = fn(*card, 16), fn(*host, 16)
+        got, want = (got,) if torch.is_tensor(got) else got, (want,) if torch.is_tensor(want) else want
+        if not all(torch.equal(g.cpu(), w) for g, w in zip(got, want)):
+            raise AssertionError(f"{fn.__name__}: card != CPU")
+        print(f"extension {fn.__name__}: 64 pairs, card == CPU; first scores "
+              f"{got[0][:4].tolist()}")
+    print(f"main-path launches per kernel/shape, all phases: {total}")
 
     # ---- kernels against their plain versions --------------------------
     # on the inputs each path's warm pass gave its kernel, every band and
@@ -371,22 +573,46 @@ def main() -> int:
         ("chain_dp (general headline)", 290, cap_gen, "chain_dp/static", None, 5),
         ("chain_dp (general long reads)", 552, cap_glong, "chain_dp/lane", None, 1),
         ("chain_dp (window 128)", 428, cap_gen, "chain_dp/static", 128, 5),
+        ("chain_dp_aux_prune (skipprune lite)", None, cap_sp, "chain_dp_aux_prune/static",
+         None, 1),
+        ("chain_dp_prune (skipprune general)", None, cap_gsp, "chain_dp_prune/static",
+         None, 1),
+        ("chain_dp_prune (CLI chain)", None, cap_cli, "chain_dp_prune/lane", None, 1),
     ]
     for name, line, cap, key, window, plain_reps in rows:
         entries = _launched(cap, key)
         variant = key.split("/")[0]
-        shapes = [(tuple(a[0].shape), s.bw, window or w) for a, s, w in entries]
+        shapes = [(tuple(a[0].shape), s.bw, window or w) for a, s, w, _skip in entries]
         held = f"{variant}/dynamic" if window else key
         if window and min(sh[1] for sh, _b, _w in shapes) <= window:
             raise AssertionError(f"{name}: window {window} is not below A")
         err, ms, plain_ms, timed = _kernel_vs_plain(
-            entries, tab, variant == "chain_dp_aux", window, plain_reps)
+            entries, tab, variant.startswith("chain_dp_aux"), window, plain_reps)
         print(f"{name}: (B, A), bw, window = {shapes}, all equal; timed at "
               f"{timed}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        # the pruned instances replace the JAX lax.scan DP with max_chain_skip
+        replaces = (f"{pallas}:{line}" if line else "minimap2_rs_tpu/ops/chain_ops.py:"
+                    + ("219" if variant.startswith("chain_dp_aux") else "141"))
         kernels.append(dict(
-            name=name, route="cuda", source=src, replaces=f"{pallas}:{line}",
+            name=name, route="cuda", source=src, replaces=replaces,
             launches=total.get(held, 0), max_abs_err=err, ms=ms, plain_ms=plain_ms,
             shape=held.split("/")[1], timed_at=timed, on_main_path=total.get(held, 0) > 0,
+        ))
+
+    # the window scan: every short entry whole, the long ones on 8 rows
+    for cls, max_rows in (("short", None), ("long", 8)):
+        key = f"window_scan/{cls}"
+        entries = _launched(cap_14, key)
+        ms, plain_ms, timed = _scan_vs_plain(entries, max_rows)
+        shapes = [(tuple(a[0][:max_rows].shape), w, k) for a, w, k in entries]
+        print(f"window_scan ({cls}): (B, L), w, k = {shapes}, all equal; timed at "
+              f"{timed}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        kernels.append(dict(
+            name=f"window_scan (even_k14 {cls} reads)", route="cuda",
+            source="minimap2_rs_torch/csrc/window_scan.cu",
+            replaces="minimap2_rs_tpu/ops/sketch_scan.py:110",
+            launches=total.get(key, 0), max_abs_err=0, ms=ms, plain_ms=plain_ms,
+            shape=cls, timed_at=timed, on_main_path=total.get(key, 0) > 0,
         ))
 
     if "jax" in sys.modules:

@@ -1,4 +1,5 @@
-// Exact-window colinear chaining DP for Hopper, in two variants.
+// Colinear chaining DP for Hopper: two variants, each with an exact
+// window and a pruned instance.
 //
 // Replaces all six Pallas kernels of minimap2_rs_tpu/ops/chain_pallas.py.
 // Their split into static-sublane, dynamic-sublane and lane layouts
@@ -47,9 +48,26 @@
 // predecessor) take the base case directly, as the Pallas kernels'
 // padding epilogue does (chain_pallas.py:274-285).
 //
-// ptxas -v for sm_90a (build log of an H100 run): chain_dp_kernel<false>
-// uses 42 registers, chain_dp_kernel<true> 48; both 0 bytes of stack
-// and no spill stores or loads.
+// The pruned instances (kPrune; mm2t_chain_dp_prune and
+// mm2t_chain_dp_aux_prune) replicate the reference's order-dependent
+// max_chain_skip early break (oracle/lchain.py:106-129), which the JAX
+// package runs only in its lax.scan DP (ops/chain_ops.py:80-137 with
+// max_chain_skip, under MM2T_SKIP_PRUNE). They have no Pallas
+// counterpart. The walk is newest-first: a beat (sc > max_f, seeded with
+// span[i]) decrements the skip counter, floored at 0; a non-beat j with
+// t[j] == i increments it and the walk breaks past max_skip; every
+// scanned in-band j with prev[j] >= 0 then sets t[prev[j]] = i. The
+// lanes score the window 32 slots at a time, newest first, and stage the
+// scores and prev values in shared memory; lane 0 walks the admissible
+// ones serially (a ballot mask skips the rest) and the warp stops at the
+// break. t is a per-read scratch of A ints, set to -1 once: it stores i,
+// so it needs no reset between rows. The aux instance keeps prev in a
+// per-read scratch as well, for the marks.
+//
+// ptxas -v for sm_90a (build log of an H100 run), as <kAux, kPrune>:
+// <false, false> 44 registers, <true, false> 48, <false, true> 32 and
+// <true, true> 40 (both with 1 KB of shared memory); all 0 bytes of
+// stack and no spill stores or loads.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -58,18 +76,48 @@ namespace {
 
 constexpr int kNegInf = -(1 << 30);
 constexpr int kWarpsPerBlock = 4;
+constexpr unsigned kFull = 0xffffffffu;
+
+// comput_sc (lchain.rs:17-34) of anchor j as a predecessor of i, plus
+// f[j]; false when j is not admissible
+__device__ __forceinline__ bool score(
+    int j, int gi, long long ri, long long qi, const int* g, const int* rp,
+    const int* qp, const int* sp, const int* fo, const float* log2tab,
+    int tab_len, int mdx, int mdy, int bw, float pen_gap, float pen_skip,
+    int* out) {
+  if (g[j] != gi) return false;
+  const long long dq = qi - qp[j];
+  const long long dr = ri - rp[j];
+  const long long dd = dr > dq ? dr - dq : dq - dr;
+  if (dq <= 0 || dq > mdx || dq > mdy || dr == 0 || dr > mdx || dd > bw)
+    return false;
+  const long long dg = dr < dq ? dr : dq;
+  const int sj = sp[j];
+  int sc = (int)(sj < dg ? sj : dg);
+  if (dd != 0 || dg > sj) {
+    const int t = (int)(dd < tab_len - 1 ? dd : tab_len - 1);
+    const float lin = __fadd_rn(__fmul_rn(pen_gap, (float)dd),
+                                __fmul_rn(pen_skip, (float)dg));
+    sc -= __float2int_rz(__fadd_rn(lin, __fmul_rn(0.5f, log2tab[t])));
+  }
+  *out = sc + fo[j];
+  return true;
+}
 
 // kAux: (f, cnt, sq, sr). !kAux: (f, prev); o2 and o3 are unused.
-template <bool kAux>
+// kPrune: the max_chain_skip walk; pv is prev (the aux instance's
+// scratch, else o1) and tt the marks scratch, both (B, A).
+template <bool kAux, bool kPrune>
 __global__ void chain_dp_kernel(
     const int* __restrict__ grp, const int* __restrict__ rpos,
     const int* __restrict__ qpos, const int* __restrict__ span,
-    int* f, int* o1, int* o2, int* o3,
+    int* f, int* o1, int* o2, int* o3, int* pv_scratch, int* t_scratch,
     const float* __restrict__ log2tab, int tab_len,
     int B, int A, int H, int mdx, int mdy, int bw,
-    float pen_gap, float pen_skip) {
+    float pen_gap, float pen_skip, int max_skip) {
   const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * kWarpsPerBlock + warp;
   if (b >= B) return;  // whole warps exit together
   const size_t base = (size_t)b * A;
   const int* g = grp + base;
@@ -80,13 +128,15 @@ __global__ void chain_dp_kernel(
   int* co = o1 + base;  // cnt (aux) or prev
   int* qo = kAux ? o2 + base : nullptr;
   int* ro = kAux ? o3 + base : nullptr;
+  int* pv = kPrune ? (kAux ? pv_scratch + base : co) : nullptr;
+  int* tt = kPrune ? t_scratch + base : nullptr;
 
   // rows >= n are trailing padding
   int last = -1;
   for (int j = lane; j < A; j += 32)
     if (g[j] != -1) last = j;
   for (int o = 16; o > 0; o >>= 1)
-    last = max(last, __shfl_xor_sync(0xffffffffu, last, o));
+    last = max(last, __shfl_xor_sync(kFull, last, o));
   const int n = last + 1;
 
   for (int i = lane + n; i < A; i += 32) {
@@ -99,6 +149,13 @@ __global__ void chain_dp_kernel(
       co[i] = -1;
     }
   }
+  if (kPrune) {
+    for (int i = lane; i < n; i += 32) tt[i] = -1;
+    __syncwarp();
+  }
+
+  __shared__ int s_sc[kPrune ? kWarpsPerBlock : 1][32];
+  __shared__ int s_pv[kPrune ? kWarpsPerBlock : 1][32];
 
   for (int i = 0; i < n; ++i) {
     const int gi = g[i];
@@ -107,35 +164,64 @@ __global__ void chain_dp_kernel(
     const int si = sp[i];
     int best = kNegInf;
     int jb = -1;
-    for (int j = max(0, i - H) + lane; j < i; j += 32) {
-      if (g[j] != gi) continue;
-      const long long dq = qi - qp[j];
-      const long long dr = ri - rp[j];
-      const long long dd = dr > dq ? dr - dq : dq - dr;
-      if (dq <= 0 || dq > mdx || dq > mdy || dr == 0 || dr > mdx || dd > bw)
-        continue;
-      const long long dg = dr < dq ? dr : dq;
-      const int sj = sp[j];
-      int sc = (int)(sj < dg ? sj : dg);
-      if (dd != 0 || dg > sj) {
-        const int t = (int)(dd < tab_len - 1 ? dd : tab_len - 1);
-        const float lin = __fadd_rn(__fmul_rn(pen_gap, (float)dd),
-                                    __fmul_rn(pen_skip, (float)dg));
-        sc -= __float2int_rz(__fadd_rn(lin, __fmul_rn(0.5f, log2tab[t])));
+    if (!kPrune) {
+      for (int j = max(0, i - H) + lane; j < i; j += 32) {
+        int sc;
+        if (!score(j, gi, ri, qi, g, rp, qp, sp, fo, log2tab, tab_len, mdx,
+                   mdy, bw, pen_gap, pen_skip, &sc))
+          continue;
+        // j ascends per lane, so >= keeps this lane's largest tied j
+        if (sc >= best) {
+          best = sc;
+          jb = j;
+        }
       }
-      sc += fo[j];
-      // j ascends per lane, so >= keeps this lane's largest tied j
-      if (sc >= best) {
-        best = sc;
-        jb = j;
+      for (int o = 16; o > 0; o >>= 1) {
+        const int ob = __shfl_xor_sync(kFull, best, o);
+        const int oj = __shfl_xor_sync(kFull, jb, o);
+        if (ob > best || (ob == best && oj > jb)) {
+          best = ob;
+          jb = oj;
+        }
       }
-    }
-    for (int o = 16; o > 0; o >>= 1) {
-      const int ob = __shfl_xor_sync(0xffffffffu, best, o);
-      const int oj = __shfl_xor_sync(0xffffffffu, jb, o);
-      if (ob > best || (ob == best && oj > jb)) {
-        best = ob;
-        jb = oj;
+    } else {
+      // newest-first walk in chunks of 32; lane 0 carries (best, jb,
+      // n_skip) and the break
+      const int lo = max(0, i - H);
+      best = si;
+      int n_skip = 0;
+      bool brk = false;
+      for (int top = i - 1; top >= lo && !brk; top -= 32) {
+        const int j = top - lane;
+        int sc = 0;
+        const bool ok = j >= lo &&
+            score(j, gi, ri, qi, g, rp, qp, sp, fo, log2tab, tab_len, mdx,
+                  mdy, bw, pen_gap, pen_skip, &sc);
+        const unsigned okm = __ballot_sync(kFull, ok);
+        s_sc[warp][lane] = sc;
+        s_pv[warp][lane] = ok ? pv[j] : -1;
+        __syncwarp();
+        if (lane == 0) {
+          for (unsigned m = okm; m; m &= m - 1) {
+            const int u = __ffs(m) - 1;  // lowest lane = newest j
+            const int jj = top - u;
+            const int s = s_sc[warp][u];
+            if (s > best) {
+              best = s;
+              jb = jj;
+              if (n_skip > 0) --n_skip;
+            } else if (tt[jj] == i) {
+              if (++n_skip > max_skip) {
+                brk = true;
+                break;
+              }
+            }
+            const int p = s_pv[warp][u];
+            if (p >= 0) tt[p] = i;
+          }
+        }
+        brk = __shfl_sync(kFull, brk, 0);
+        __syncwarp();  // the next chunk overwrites the staging
       }
     }
     if (lane == 0) {
@@ -154,30 +240,33 @@ __global__ void chain_dp_kernel(
       } else {
         co[i] = win ? jb : -1;
       }
+      if (kPrune && kAux) pv[i] = win ? jb : -1;
     }
     __syncwarp();
   }
 }
 
-template <bool kAux>
+template <bool kAux, bool kPrune>
 int launch(const void* grp, const void* rpos, const void* qpos,
            const void* span, void* f, void* o1, void* o2, void* o3,
+           void* pv_scratch, void* t_scratch,
            const void* log2tab, int tab_len, int B, int A, int H, int mdx,
-           int mdy, int bw, float pen_gap, float pen_skip, void* stream) {
+           int mdy, int bw, float pen_gap, float pen_skip, int max_skip,
+           void* stream) {
   if (B <= 0 || A <= 0) return (int)cudaSuccess;
   const int threads = 32 * kWarpsPerBlock;
   const int blocks = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  chain_dp_kernel<kAux><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  chain_dp_kernel<kAux, kPrune><<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const int*)grp, (const int*)rpos, (const int*)qpos, (const int*)span,
-      (int*)f, (int*)o1, (int*)o2, (int*)o3,
-      (const float*)log2tab, tab_len, B, A, H, mdx, mdy, bw,
-      pen_gap, pen_skip);
+      (int*)f, (int*)o1, (int*)o2, (int*)o3, (int*)pv_scratch,
+      (int*)t_scratch, (const float*)log2tab, tab_len, B, A, H, mdx, mdy, bw,
+      pen_gap, pen_skip, max_skip);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Both entry points launch on `stream`, allocate nothing and do not
+// Every entry point launches on `stream`, allocates nothing and does not
 // synchronise; each returns cudaGetLastError() after the launch (0 when
 // the launch was accepted).
 extern "C" int mm2t_chain_dp_aux(
@@ -186,9 +275,9 @@ extern "C" int mm2t_chain_dp_aux(
     const void* log2tab, int tab_len,
     int B, int A, int H, int mdx, int mdy, int bw,
     float pen_gap, float pen_skip, void* stream) {
-  return launch<true>(grp, rpos, qpos, span, f, cnt, sq, sr, log2tab,
-                      tab_len, B, A, H, mdx, mdy, bw, pen_gap, pen_skip,
-                      stream);
+  return launch<true, false>(grp, rpos, qpos, span, f, cnt, sq, sr, nullptr,
+                             nullptr, log2tab, tab_len, B, A, H, mdx, mdy, bw,
+                             pen_gap, pen_skip, 0, stream);
 }
 
 extern "C" int mm2t_chain_dp(
@@ -197,7 +286,33 @@ extern "C" int mm2t_chain_dp(
     const void* log2tab, int tab_len,
     int B, int A, int H, int mdx, int mdy, int bw,
     float pen_gap, float pen_skip, void* stream) {
-  return launch<false>(grp, rpos, qpos, span, f, prev, nullptr, nullptr,
-                       log2tab, tab_len, B, A, H, mdx, mdy, bw, pen_gap,
-                       pen_skip, stream);
+  return launch<false, false>(grp, rpos, qpos, span, f, prev, nullptr,
+                              nullptr, nullptr, nullptr, log2tab, tab_len, B,
+                              A, H, mdx, mdy, bw, pen_gap, pen_skip, 0,
+                              stream);
+}
+
+// The pruned instances. prev_scratch (aux only) and t_scratch are (B, A)
+// int32 scratch the kernel fills.
+extern "C" int mm2t_chain_dp_aux_prune(
+    const void* grp, const void* rpos, const void* qpos, const void* span,
+    void* f, void* cnt, void* sq, void* sr, void* prev_scratch,
+    void* t_scratch, const void* log2tab, int tab_len,
+    int B, int A, int H, int mdx, int mdy, int bw,
+    float pen_gap, float pen_skip, int max_skip, void* stream) {
+  return launch<true, true>(grp, rpos, qpos, span, f, cnt, sq, sr,
+                            prev_scratch, t_scratch, log2tab, tab_len, B, A,
+                            H, mdx, mdy, bw, pen_gap, pen_skip, max_skip,
+                            stream);
+}
+
+extern "C" int mm2t_chain_dp_prune(
+    const void* grp, const void* rpos, const void* qpos, const void* span,
+    void* f, void* prev, void* t_scratch, const void* log2tab, int tab_len,
+    int B, int A, int H, int mdx, int mdy, int bw,
+    float pen_gap, float pen_skip, int max_skip, void* stream) {
+  return launch<false, true>(grp, rpos, qpos, span, f, prev, nullptr,
+                             nullptr, nullptr, t_scratch, log2tab, tab_len, B,
+                             A, H, mdx, mdy, bw, pen_gap, pen_skip, max_skip,
+                             stream);
 }

@@ -1,10 +1,11 @@
 """Build the port's CUDA kernels into one shared library and load it.
 
 The sources under minimap2_rs_torch/csrc are compiled by nvcc for
-Hopper (sm_90a) into <checkout>/build/kernels/libmm2t_torch_kernels.so
-at first use, with a plain C interface that kernels/*.py bind through
-ctypes. A library older than any source is rebuilt. Nothing is built or
-loaded when this module is imported.
+Hopper (sm_90a), one nvcc process per source, all started together, and
+linked into <checkout>/build/kernels/libmm2t_torch_kernels.so at first
+use, with a plain C interface that kernels/*.py bind through ctypes. A
+library older than any source is rebuilt. Nothing is built or loaded
+when this module is imported.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 LIB_NAME = "libmm2t_torch_kernels.so"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     # the chain penalty must round after every f32 op (the kernel also
     # spells it with __fmul_rn/__fadd_rn)
     "-fmad=false",
@@ -52,12 +53,23 @@ def build() -> Path:
     ):
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    nvcc, tag = _nvcc(), os.getpid()
+    objs = [BUILD_DIR / f"{s.stem}.{tag}.o" for s in srcs]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)] for s, o in zip(srcs, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    build_log = "".join(logs)
+    for cmd, p, log in zip(cmds, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{log}")
+    tmp = out.with_suffix(f".{tag}.tmp")
+    cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
     res = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = res.stdout + res.stderr
+    for o in objs:
+        o.unlink()
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{build_log}")
+        raise RuntimeError(f"nvcc link failed ({' '.join(cmd)}):\n{res.stdout}{res.stderr}")
     os.replace(tmp, out)
     return out
 
@@ -68,16 +80,27 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        for fn, n_out in ((lib.mm2t_chain_dp_aux, 4), (lib.mm2t_chain_dp, 2)):
+        for fn, n_out, prune in (
+            (lib.mm2t_chain_dp_aux, 4, False), (lib.mm2t_chain_dp, 2, False),
+            (lib.mm2t_chain_dp_aux_prune, 6, True), (lib.mm2t_chain_dp_prune, 3, True),
+        ):
             fn.restype = ci
             fn.argtypes = [
                 vp, vp, vp, vp,      # grp, rpos, qpos, span
-                *[vp] * n_out,       # f, cnt, sq, sr / f, prev
+                *[vp] * n_out,       # outputs (f, cnt, sq, sr / f, prev), scratch
                 vp, ci,              # log2 table, its length
                 ci, ci, ci,          # B, A, H
                 ci, ci, ci,          # max_dist_x, max_dist_y, bw
                 cf, cf,              # pen_gap, pen_skip
+                *[ci] * prune,       # max_chain_skip
                 vp,                  # stream
             ]
+        lib.mm2t_window_scan.restype = ci
+        lib.mm2t_window_scan.argtypes = [
+            vp, vp, vp, vp, vp,      # ks, ps, l_eff, lengths, emit_final
+            vp, vp, vp,              # emitted, ring_x, ring_y
+            ci, ci, ci, ci,          # B, L, w, k
+            vp,                      # stream
+        ]
         _lib = lib
     return _lib

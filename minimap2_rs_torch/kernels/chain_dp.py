@@ -12,15 +12,23 @@ mm2t_chain_dp. It replaces the kernels reached through
 chain_dp_batch_pallas: `_static_kernel`, `_chain_kernel` and
 `_chain_kernel_lane`, at the same shapes.
 
+With max_chain_skip set, each wrapper launches the variant's pruned
+instance instead (mm2t_chain_dp_prune, mm2t_chain_dp_aux_prune): the
+reference's max_chain_skip early break, which the JAX package runs in
+its lax.scan DP under MM2T_SKIP_PRUNE (ops/chain_ops.py:80-137); it has
+no Pallas counterpart.
+
 One template with a runtime window H = min(window, A) covers every
 shape. It is bound by per-step latency and global-memory window reads,
 not FLOPs (one warp per read walks the sequential DP; see the source's
-header). ptxas -v for sm_90a: 42 registers for the (f, prev) instance,
-48 for the aux one, no spills.
+header). ptxas -v for sm_90a: 44 registers for the exact (f, prev)
+instance, 48 for the exact aux one, 32 and 40 for the pruned ones, no
+spills.
 
 On CUDA tensors each wrapper launches its kernel or raises; on CPU
 tensors it runs the plain version in ops/chain_ops.py. Launches are
-counted per variant and per the Pallas kernel's shape class.
+counted per variant (a pruned launch under "<variant>_prune") and per
+the Pallas kernel's shape class.
 """
 
 from __future__ import annotations
@@ -33,7 +41,8 @@ SHAPES = ("static", "dynamic", "lane")
 
 # kernel launches per "variant/shape" (the main path's proof that it ran
 # through each kernel at each shape); the plain versions do not count
-launches = {f"{v}/{s}": 0 for v in ("chain_dp_aux", "chain_dp") for s in SHAPES}
+VARIANTS = ("chain_dp_aux", "chain_dp", "chain_dp_aux_prune", "chain_dp_prune")
+launches = {f"{v}/{s}": 0 for v in VARIANTS for s in SHAPES}
 # when a dict, each launch's inputs are kept under (variant/shape, bw, A),
 # the first launch of each key winning, so the kernel can be held against
 # its plain version at exactly the shapes a run gave it
@@ -66,7 +75,8 @@ def _check(name: str, t: torch.Tensor, shape, dtype, device):
 
 
 def _run(variant: str, n_out: int, ref, grp, rpos, qpos, span,
-         scalars: ChainScalars, window: int, log2_tab: torch.Tensor):
+         scalars: ChainScalars, window: int, log2_tab: torch.Tensor,
+         max_chain_skip: int | None):
     """Validate, then the plain version on the CPU or one kernel launch
     on CUDA; returns n_out (B, A) int32 tensors."""
     if grp.dim() != 2:
@@ -79,26 +89,36 @@ def _run(variant: str, n_out: int, ref, grp, rpos, qpos, span,
     _check("log2_tab", log2_tab, log2_tab.shape, torch.float32, dev)
     if window < 1:
         raise ValueError("window must be >= 1")
+    if max_chain_skip is not None and max_chain_skip < 0:
+        raise ValueError("max_chain_skip must be >= 0")
     if dev.type == "cpu":
-        return ref(grp, rpos, qpos, span, scalars, window, log2_tab)
+        return ref(grp, rpos, qpos, span, scalars, window, log2_tab,
+                   max_chain_skip=max_chain_skip)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
 
     from .build import library
 
+    prune = max_chain_skip is not None
+    if prune:
+        variant += "_prune"
     fn = getattr(library(), f"mm2t_{variant}")
     B, A = grp.shape
-    outs = [torch.empty((B, A), dtype=torch.int32, device=dev) for _ in range(n_out)]
+    new = lambda: torch.empty((B, A), dtype=torch.int32, device=dev)
+    outs = [new() for _ in range(n_out)]
+    # the pruned instances' scratch: prev (aux only) and the marks t
+    scratch = [new() for _ in range(1 + (n_out == 4))] if prune else []
+    tail = (max_chain_skip,) if prune else ()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = fn(
             grp.data_ptr(), rpos.data_ptr(), qpos.data_ptr(), span.data_ptr(),
-            *(o.data_ptr() for o in outs),
+            *(o.data_ptr() for o in outs + scratch),
             log2_tab.data_ptr(), log2_tab.shape[0],
             B, A, min(window, A),
             scalars.max_dist_x, scalars.max_dist_y, scalars.bw,
             scalars.chn_pen_gap, scalars.chn_pen_skip,
-            stream,
+            *tail, stream,
         )
     if err != 0:
         raise RuntimeError(f"mm2t_{variant} launch failed: cudaError {err}")
@@ -106,7 +126,8 @@ def _run(variant: str, n_out: int, ref, grp, rpos, qpos, span,
     launches[key] += 1
     if captured is not None:
         captured.setdefault((key, scalars.bw, A), (
-            tuple(t.clone() for t in (grp, rpos, qpos, span)), scalars, window))
+            tuple(t.clone() for t in (grp, rpos, qpos, span)), scalars, window,
+            max_chain_skip))
     return tuple(outs)
 
 
@@ -118,10 +139,13 @@ def chain_dp_aux_batch(
     scalars: ChainScalars,
     window: int,
     log2_tab: torch.Tensor,  # (>= bw + 1,) float32 on grp's device
+    max_chain_skip: int | None = None,
 ):
-    """(f, cnt, sq, sr), each (B, A) int32 — see chain_dp_aux_batch_ref."""
+    """(f, cnt, sq, sr), each (B, A) int32 — see chain_dp_aux_batch_ref.
+    max_chain_skip=None scores the window exactly; an int runs the
+    reference's pruned walk."""
     return _run("chain_dp_aux", 4, chain_dp_aux_batch_ref, grp, rpos, qpos,
-                span, scalars, window, log2_tab)
+                span, scalars, window, log2_tab, max_chain_skip)
 
 
 def chain_dp_batch(
@@ -132,7 +156,9 @@ def chain_dp_batch(
     scalars: ChainScalars,
     window: int,
     log2_tab: torch.Tensor,  # (>= bw + 1,) float32 on grp's device
+    max_chain_skip: int | None = None,
 ):
-    """(f, prev), each (B, A) int32 — see chain_dp_batch_ref."""
+    """(f, prev), each (B, A) int32 — see chain_dp_batch_ref.
+    max_chain_skip as in chain_dp_aux_batch."""
     return _run("chain_dp", 2, chain_dp_batch_ref, grp, rpos, qpos, span,
-                scalars, window, log2_tab)
+                scalars, window, log2_tab, max_chain_skip)

@@ -1,13 +1,19 @@
-"""Index construction for the port: the reference package's threaded
-native C++ build, with no jax (counterpart of
-minimap2_rs_tpu/models/index_builder.build_index_native)."""
+"""Index construction for the port (counterpart of
+minimap2_rs_tpu/models/index_builder.py), with no jax: the reference
+package's threaded native C++ build, and the chunked device build
+(ops/index_build.py) on an explicit device. Both give the same flat
+sorted-array OracleIndex."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from minimap2_rs_tpu.config import IndexParams
-from minimap2_rs_tpu.oracle.index import OracleIndex, SeqMeta, build_index
+from minimap2_rs_tpu.oracle.index import OracleIndex, SeqMeta, _flatten, build_index
+from minimap2_rs_tpu.utils.packing import nt4_encode, seq4_pack
+
+from ..device import resolve_device
 
 
 def build_index_native(
@@ -37,5 +43,39 @@ def build_index_native(
     return OracleIndex(
         w=params.w, k=params.k, b=params.bucket_bits, flag=params.flag,
         n_seq=len(records), seq=seqs, S=S,
+        keys=fkeys, starts=starts, counts=counts, positions=positions,
+    )
+
+
+def build_index_device(
+    records: list[tuple[str | None, bytes]],
+    params: IndexParams = IndexParams(),
+    chunk: int = 1 << 18,
+    batch_rows: int = 16,
+    device: str | torch.device = "cuda",
+) -> OracleIndex:
+    """The index with the sketch and the pair sort on `device` (JAX
+    build_index_device, index_builder.py:57-85). Even k takes the host
+    exact-scan build, as the JAX function does."""
+    if params.k % 2 == 0:
+        return build_index(records, params, use_fast_sketch=False)
+    from ..ops.index_build import build_sorted_pairs_device
+
+    dev = resolve_device(device)
+    recs = [(rid, nt4_encode(s)) for rid, (_n, s) in enumerate(records)]
+    keys, rps = build_sorted_pairs_device(
+        recs, params.w, params.k, params.is_hpc, chunk=chunk,
+        batch_rows=batch_rows, device=dev,
+    )
+    seqs: list[SeqMeta] = []
+    off = 0
+    for name, s in records:
+        seqs.append(SeqMeta(name=name, offset=off, length=len(s)))
+        off += len(s)
+    codes = np.concatenate([c for _, c in recs]) if recs else np.zeros(0, np.uint8)
+    fkeys, starts, counts, positions = _flatten(keys, rps, presorted=True)
+    return OracleIndex(
+        w=params.w, k=params.k, b=params.bucket_bits, flag=params.flag,
+        n_seq=len(records), seq=seqs, S=seq4_pack(codes),
         keys=fkeys, starts=starts, counts=counts, positions=positions,
     )

@@ -17,6 +17,11 @@ and one device program per batch runs the pipeline. Two paths:
     re-run the chain DP at bw_long in one batched device pass; reads
     that overflow their slots go to the host oracle pipeline.
 
+MM2T_SKIP_PRUNE=1 makes every chain DP of both paths (the rescue
+re-chain, tier 2 and the lazy wide pass included) replicate the
+reference's order-dependent max_chain_skip pruning, as the JAX mapper
+does (mapper.py:222-230); by default the window is scored exactly.
+
 Submission runs on a background thread feeding the drain in order; on
 CUDA each batch goes up as a pinned 2-bit wire and comes back through a
 pinned buffer with a non-blocking copy and an event, so the host
@@ -78,6 +83,13 @@ _SLOT_TARGET = 2 << 20
 LITE_WINDOW_CAP = 1024
 
 
+def _chain_skip_cfg(cp: ChainParams) -> int | None:
+    """cp.max_chain_skip under MM2T_SKIP_PRUNE (the reference's pruned
+    DP, lchain.rs:79-88), else None: the exact window, a superset that
+    can only find equal or better chains (JAX mapper.py:222-230)."""
+    return cp.max_chain_skip if os.environ.get("MM2T_SKIP_PRUNE") else None
+
+
 def _combine64(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
     return (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
 
@@ -126,6 +138,7 @@ def _fused_map_stage_lite(
     w: int, k: int, q_occ_max: int, q_occ_frac: float,
     M: int, A: int, window: int,
     flag_window_ovf: bool, wire: str, wide: bool,
+    max_chain_skip: int | None = None,
 ) -> torch.Tensor:
     """The whole per-batch device pipeline (JAX _fused_map_stage_lite,
     mapper.py:160-219); returns the (B, 10) int32 wire rows."""
@@ -138,7 +151,7 @@ def _fused_map_stage_lite(
         anc, lengths, scalars, scalars_wide, tlens,
         rmq_rescue_size, rmq_rescue_ratio,
         k=k, window=window, log2_tab=log2_tab,
-        flag_window_ovf=flag_window_ovf, wide=wide,
+        flag_window_ovf=flag_window_ovf, max_chain_skip=max_chain_skip, wide=wide,
     )
 
 
@@ -153,6 +166,7 @@ def _fused_map_stage(
     *,
     w: int, k: int, q_occ_max: int, q_occ_frac: float,
     M: int, A: int, window: int, wire: str,
+    max_chain_skip: int | None = None,
 ) -> torch.Tensor:
     """The general path's per-batch device program (JAX _fused_map_stage,
     mapper.py:79-149): wire unpack, sketch to anchors, the (f, prev)
@@ -167,7 +181,7 @@ def _fused_map_stage(
     )
     f, prev = chain_dp_batch(
         *chain_inputs(anc["x_hi"], anc["x_lo"], anc["y_hi"], anc["y_lo"]),
-        scalars, window, log2_tab,
+        scalars, window, log2_tab, max_chain_skip,
     )
     words = [as_i32(anc[c]) for c in ("x_hi", "x_lo", "y_hi", "y_lo")]
     flags = [anc[c].to(torch.int32)[:, None]
@@ -176,12 +190,13 @@ def _fused_map_stage(
 
 
 def _packed_chain_stage(x_hi, x_lo, y_hi, y_lo, scalars: ChainScalars,
-                        window: int, log2_tab: torch.Tensor) -> torch.Tensor:
+                        window: int, log2_tab: torch.Tensor,
+                        max_chain_skip: int | None = None) -> torch.Tensor:
     """The chain DP alone (the rescue re-run, lchain.rs:321-330; JAX
     mapper.py:244-266) on (B, A) int32 anchor words, packed into one
     (B, 2A) buffer [f | prev]."""
     f, prev = chain_dp_batch(*chain_inputs(x_hi, x_lo, y_hi, y_lo),
-                             scalars, window, log2_tab)
+                             scalars, window, log2_tab, max_chain_skip)
     return torch.cat([f, prev], dim=1)
 
 
@@ -444,7 +459,8 @@ class Mapper:
                 common = dict(w=self.idx.w, k=self.idx.k,
                               q_occ_max=self.mp.q_occ_max,
                               q_occ_frac=self.mp.q_occ_frac,
-                              M=M, A=A, window=window, wire=wire)
+                              M=M, A=A, window=window, wire=wire,
+                              max_chain_skip=_chain_skip_cfg(self.cp))
                 if lite:
                     out = _fused_map_stage_lite(
                         self.dev_idx, d_wire, d_len, d_nex,
@@ -707,7 +723,8 @@ class Mapper:
         words = (self._to_device(np.ascontiguousarray(a).view(np.int32))
                  for a in (x_hi, x_lo, y_hi, y_lo))
         packed = _packed_chain_stage(*words, self._scalars_wide, window,
-                                     self._log2_tab).cpu().numpy()
+                                     self._log2_tab,
+                                     _chain_skip_cfg(self.cp)).cpu().numpy()
         return packed[:, :A], packed[:, A:]
 
     def _drain_rescues(self, reads, results):

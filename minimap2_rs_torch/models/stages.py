@@ -125,6 +125,7 @@ def chain_finalize_lite(
     *,
     k: int, window: int, log2_tab: torch.Tensor,
     flag_window_ovf: bool = False,
+    max_chain_skip: int | None = None,
     wide: bool = True,
 ) -> torch.Tensor:
     """Chain DP + finalize; returns the wire rows ((B, 10) int32 when
@@ -134,7 +135,9 @@ def chain_finalize_lite(
     for reads whose normal-band rescue flag fired (lchain.rs:321-330);
     the merged row's rescue column keeps the normal band's flag.
     wide=False runs the `scalars` band only. win_ovf is computed per
-    band with that band's max_dist_x."""
+    band with that band's max_dist_x. max_chain_skip=None scores the
+    window exactly; an int runs the reference's pruned DP in both
+    bands (JAX stages.py:170-178)."""
     x_hi, x_lo, y_hi, y_lo = anc["x_hi"], anc["x_lo"], anc["y_hi"], anc["y_lo"]
     n_anchors, cps = anc["n_anchors"], anc["cps"]
     B, A = x_hi.shape
@@ -143,7 +146,8 @@ def chain_finalize_lite(
     args = chain_inputs(x_hi, x_lo, y_hi, y_lo)
     fields = []
     for scal in (scalars, scalars_wide) if wide else (scalars,):
-        f, cnt, sq, sr = chain_dp_aux_batch(*args, scal, window, log2_tab)
+        f, cnt, sq, sr = chain_dp_aux_batch(*args, scal, window, log2_tab,
+                                            max_chain_skip)
         win_ovf = (
             _win_ovf(x_hi, x_lo, n_anchors, scal.max_dist_x, window)
             if flag_window_ovf and A > window else None

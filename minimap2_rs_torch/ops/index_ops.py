@@ -16,9 +16,12 @@ the hashed key. Two of its layouts are probed here:
   * dm_entry == 4, wide: S entries [key_hi, key_lo, start, count] per
     row. Small genomes get it (50 kb: p=12, S=16).
 
-The planner never returns dm_entry == 2 (it upgrades the compact entry
-to the fused form), and the prefix fallback only serves tables above the
-2 GB cap; both raise NotImplementedError here.
+Above the 2 GB cap the planner gives no direct table, and the lookup
+falls back to the prefix probe (JAX index_ops.py:504-521): the prefix
+table gives each key's bucket base in the padded key table `kv`, and S
+consecutive rows are compared there. Only the sharded index builder of
+the multi-device path makes the compact two-phase entry (dm_entry == 2),
+which raises NotImplementedError here.
 
 Tables are stored as int32 tensors holding the uint32 words' bits.
 """
@@ -265,14 +268,29 @@ def fill_direct_table(
     return dm.reshape(1 << p, 4 * S)
 
 
+def gather_rows(table: torch.Tensor, base: torch.Tensor, S: int) -> torch.Tensor:
+    """table (N, C), base any int shape -> (*base.shape, S, C): S
+    consecutive rows per query, clamped at the end (JAX
+    index_ops.py:425-437)."""
+    i = base.unsqueeze(-1) + torch.arange(S, device=base.device)
+    return table[i.clamp(0, table.shape[0] - 1)]
+
+
 def index_lookup(idx: DeviceIndex, q: torch.Tensor):
     """For each query key (int64, any shape): (start, count) int64 of its
     occurrence block, count 0 when absent (Index::get, index.rs:143-154).
-    One row gather on the direct-mapped table."""
+    One row gather on the direct-mapped table; the two-gather prefix
+    probe when there is none."""
     if not idx.dm_slots:
-        raise NotImplementedError(
-            "prefix-fallback lookup (tables above the 2 GB cap) is not ported"
+        p = (q >> idx.prefix_shift).clamp(0, idx.prefix.shape[0] - 2)
+        base = idx.prefix.to(torch.int64)[p]
+        rows = _u32(gather_rows(idx.kv, base, idx.bucket_slots))  # (..., S, 4)
+        hit = (rows[..., 0] == (q >> 32).unsqueeze(-1)) & (
+            rows[..., 1] == (q & U32_MASK).unsqueeze(-1)
         )
+        start = torch.where(hit, rows[..., 2], 0).amax(dim=-1)
+        count = torch.where(hit, rows[..., 3], 0).amax(dim=-1)
+        return start, count
     S = idx.dm_slots
     if idx.dm_entry == 3:
         fpb = idx.dm_fp_bits
@@ -302,4 +320,7 @@ def index_lookup(idx: DeviceIndex, q: torch.Tensor):
         start = torch.where(hit, rows[..., 2], 0).amax(dim=-1)
         count = torch.where(hit, rows[..., 3], 0).amax(dim=-1)
         return start, count
-    raise NotImplementedError(f"dm_entry == {idx.dm_entry} lookup is not ported")
+    raise NotImplementedError(
+        f"dm_entry == {idx.dm_entry} (the sharded index's two-phase table) is "
+        "not ported: it belongs to the multi-GPU path"
+    )

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from .index_ops import DeviceIndex, index_lookup
-from .sketch import INV32
+from .sketch import INV32, ks_keys, ordered_ks
 
 INVALID_XHI = INV32
 
@@ -30,9 +30,9 @@ def _sort_rows_by(keys: list[torch.Tensor], payloads: list[torch.Tensor]):
 
 
 def sort_minimizers_by_key(ks: torch.Tensor, ps: torch.Tensor):
-    """Per-read sort of minimizer slots by key_span (padding last); equal
-    keys keep ascending positions."""
-    (ks2, ps2), _ = _sort_rows_by([ks, ps], [])
+    """Per-read sort of minimizer slots by key_span as a uint64 (padding
+    last); equal keys keep ascending positions."""
+    _, (ks2, ps2) = _sort_rows_by([ordered_ks(ks), ps], [ks, ps])
     return ks2, ps2
 
 
@@ -44,7 +44,7 @@ def query_occ_filter(ks: torch.Tensor, n_mini: torch.Tensor, q_occ_max: int,
     ks must be key-sorted per read; counts are run lengths."""
     B, M = ks.shape
     dev = ks.device
-    keys = ks >> 8
+    keys = ks_keys(ks)
     idx = torch.arange(M, device=dev).expand(B, M)
     boundary = torch.ones((B, M), dtype=torch.bool, device=dev)
     boundary[:, 1:] = keys[:, 1:] != keys[:, :-1]
@@ -76,7 +76,7 @@ def build_anchors_device(
     A = max_anchors
     dev = ks.device
     # filtered/padding slots probe key 0 (their counts are masked below)
-    keys = torch.where(keep, ks >> 8, 0)
+    keys = torch.where(keep, ks_keys(ks), 0)
     start, count = index_lookup(idx, keys)
     # over-frequent target keys are skipped; singletons always kept
     # (seeds.rs:48-53)

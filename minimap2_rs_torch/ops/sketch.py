@@ -1,19 +1,22 @@
-"""Batched minimizer sketch in PyTorch (odd k <= 27, non-HPC).
+"""Batched minimizer sketch in PyTorch.
 
 Counterpart of minimap2_rs_tpu/ops/sketch.py (its u32 fast path for
 k <= 15 and its u64 path for larger k): the reference's per-base scan
 (sketch.rs:29-100) as masked elementwise work on (B, L) tensors —
 k-mers by log-step span doubling, hash64, window-minimum folds, and the
 three exactness rules (completion-step ties, run-end drops, final
-emission) of sketch.py:290-351.
+emission) of sketch.py:290-351. HPC spans (sketch.py:222-237) change
+only the span byte: the reference does not skip homopolymers. Even k
+goes to the exact scan of ops/sketch_scan.py, as in the JAX package.
 
-Every word lives in an int64 tensor. Canonical keys are < 2^54 and the
-comparison word key << 8 | span is < 2^62, so signed int64 orders them
-as the JAX package's uint64 pairs and needs no sign flip; hash64 drops
-the bits a left shift would push past the key mask before shifting, so
-no intermediate leaves int64. Keys leave as one `key << 8 | span` word
-(KS_INVALID for invalid slots, which sorts last). Even k (the exact scan
-of sketch_scan.py) and HPC queries raise NotImplementedError.
+Every word lives in an int64 tensor. For odd k <= 27 canonical keys are
+< 2^54 and the comparison word key << 8 | span is < 2^62, so signed
+int64 orders them as the JAX package's uint64 pairs; hash64 drops the
+bits a left shift would push past the key mask before shifting, so no
+intermediate leaves int64. Keys leave as one `key << 8 | span` word
+(KS_INVALID for invalid slots). At even k = 28 that word reaches 2^64:
+it is kept as the uint64's bit pattern (negative as int64), and every
+comparison of such words goes through `ordered_ks`.
 """
 
 from __future__ import annotations
@@ -22,7 +25,22 @@ import torch
 
 INV32 = 0xFFFFFFFF   # invalid position sentinel (uint32 max)
 KS_INVALID = (1 << 63) - 1  # invalid key_span sentinel (int64 max)
-MAX_K = 27  # 2k + 8 <= 62: key << 8 | span stays a non-negative int64
+MAX_K = 28  # sketch.rs:32
+KEY_MASK = (1 << 56) - 1  # the hashed key of ks >> 8, for every k <= 28
+_SIGN = -(1 << 63)
+
+
+def ordered_ks(ks: torch.Tensor) -> torch.Tensor:
+    """key_span words (uint64 bit patterns in int64, KS_INVALID for
+    invalid slots) -> int64 whose signed order is the JAX package's
+    uint64 order with invalid slots last (its all-ones sentinel). Flips
+    the sign bit, a monotone map, so it changes no order for k <= 27."""
+    return torch.where(ks == KS_INVALID, KS_INVALID, ks ^ _SIGN)
+
+
+def ks_keys(ks: torch.Tensor) -> torch.Tensor:
+    """The hashed keys (ks >> 8 as a uint64) of key_span words."""
+    return (ks >> 8) & KEY_MASK
 
 
 def _shift_right(a: torch.Tensor, t: int, fill) -> torch.Tensor:
@@ -106,18 +124,41 @@ def window_fold_min(kv: torch.Tensor, idx: torch.Tensor, w: int):
     return wmin, widx
 
 
+def hpc_kspan(codes: torch.Tensor, is_base: torch.Tensor, idx: torch.Tensor,
+              k: int) -> torch.Tensor:
+    """HPC k-mer spans (JAX sketch.py:222-237): the bases covered by the
+    last k homopolymer runs' heads, css[i] - css[max(i-k, last N)] over
+    the running sum css of each base's distance to its run's end."""
+    nxt = _shift_left(codes, 1, 4)
+    boundary = (codes != nxt) | ~is_base
+    bpos = torch.where(boundary, idx, 1 << 30)
+    next_boundary = bpos.flip(1).cummin(dim=1).values.flip(1)
+    skip_len = torch.where(is_base, next_boundary - idx + 1, 0)
+    css = skip_len.cumsum(dim=1)
+    cand_k = _shift_right(css, k, -1)  # css[idx-k], -1 when out of range
+    cand_bad = torch.where(~is_base, css, -1).cummax(dim=1).values
+    css_lo = torch.maximum(cand_k, cand_bad).clamp(min=0)
+    return css - css_lo
+
+
 def sketch_positions(codes: torch.Tensor, lengths: torch.Tensor, w: int, k: int,
-                     is_hpc: bool = False):
+                     is_hpc: bool = False, emit_final: torch.Tensor | None = None):
     """Per-position minimizer emission for (B, L) nt4 codes (padded with
     4) and (B,) true lengths.
 
-    Returns (key_span (B, L) int64 = key<<8|k or KS_INVALID,
+    Returns (key_span (B, L) int64 = key<<8|span or KS_INVALID,
     pos_strand (B, L) int64 = pos<<1|strand or INV32, emitted (B, L)
-    bool)."""
-    if is_hpc or k % 2 == 0 or not 1 <= k <= MAX_K:
-        raise NotImplementedError(
-            f"sketch_positions is ported for odd k <= {MAX_K} without HPC only"
-        )
+    bool). emit_final (B,) bool, default all true, suppresses the
+    sequence-end flush (sketch.rs:99) on rows that are interior chunks
+    of a longer sequence (ops/index_build.py)."""
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"k must be in 1..{MAX_K}, got {k}")
+    if k % 2 == 0:
+        # symmetric k-mers pause the reference's l counter, which the
+        # window-min characterization below does not model
+        from .sketch_scan import sketch_positions_exact
+
+        return sketch_positions_exact(codes, lengths, w, k, is_hpc, emit_final)
     B, L = codes.shape
     dev = codes.device
     codes = codes.to(torch.int64)
@@ -133,11 +174,9 @@ def sketch_positions(codes: torch.Tensor, lengths: torch.Tensor, w: int, k: int,
     cs = (is_base & ~sym).to(torch.int64).cumsum(dim=1)
     cs_at_bad = torch.where(~is_base, cs, -1).cummax(dim=1).values.clamp(min=0)
     l_eff = torch.where(is_base, cs - cs_at_bad, 0)
-    kspan = depth.clamp(max=k)
+    kspan = hpc_kspan(codes, is_base, idx, k) if is_hpc else depth.clamp(max=k)
 
     valid = is_base & ~sym & (l_eff >= k) & (kspan < 256)
-    # every valid kspan is k (non-HPC), so the window comparisons on
-    # key << 8 | span order the slots as the bare keys
     key = _hash64(canon, (1 << (2 * k)) - 1)
     ksc = torch.where(valid, (key << 8) | kspan, KS_INVALID)
     pos_strand = torch.where(valid, (idx << 1) | strand.to(torch.int64), INV32)
@@ -191,6 +230,8 @@ def sketch_positions(codes: torch.Tensor, lengths: torch.Tensor, w: int, k: int,
     # final emission at each read's true end (sketch.rs:99)
     last = (lengths - 1).clamp(min=0)[:, None]
     fin_valid = valid_w.gather(1, last)[:, 0] & (lengths > 0)
+    if emit_final is not None:
+        fin_valid = fin_valid & emit_final
     fin_idx = torch.where(fin_valid, widx.gather(1, last)[:, 0], 0)
     rows = torch.arange(B, device=dev)
     emitted[rows, fin_idx] |= fin_valid

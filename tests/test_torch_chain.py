@@ -184,13 +184,15 @@ def test_cpu_calls_neither_count_nor_capture():
     kchain.reset_launches()
     kchain.captured = {}
     try:
-        chain_dp_batch(*_torch_args(arrs), chain_scalars_from_params(CP), 128,
-                       log2_table(CP.bw_long + 1))
+        for skip in (None, CP.max_chain_skip):
+            chain_dp_batch(*_torch_args(arrs), chain_scalars_from_params(CP), 128,
+                           log2_table(CP.bw_long + 1), skip)
         assert kchain.captured == {}
     finally:
         kchain.captured = None
-    assert set(kchain.launches) == {f"{v}/{s}" for v in ("chain_dp_aux", "chain_dp")
-                                    for s in kchain.SHAPES}
+    assert set(kchain.launches) == {
+        f"{v}{p}/{s}" for v in ("chain_dp_aux", "chain_dp") for p in ("", "_prune")
+        for s in kchain.SHAPES}
     assert not any(kchain.launches.values())
 
 

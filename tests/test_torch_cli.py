@@ -1,8 +1,11 @@
-"""The port's CLI (`python -m minimap2_rs_torch.cli align`) against the
-JAX CLI's device engine (JAX on the CPU): the same PAF bytes on
-utils.seqsim.write_test_fasta fixtures for the default flags, the
-general path (-n 1 -m 10) and the k=19 preset (-x map-hifi). A cuda
-request without CUDA, and flags the port does not have, exit non-zero."""
+"""The port's CLI (`python -m minimap2_rs_torch.cli`) against the JAX
+CLI (JAX on the CPU), on utils.seqsim.write_test_fasta fixtures: `align`
+gives the same PAF bytes for the default flags, the general path
+(-n 1 -m 10), the k=19 preset (-x map-hifi), -H, --engine host and
+--trace-dir; `index` the same stdout and dumped .mmi bytes for each
+engine; `anchors` and `chain` the same stdout for each engine at odd and
+even k. A cuda request without CUDA, and the multi-device flags, exit
+non-zero."""
 
 import subprocess
 import sys
@@ -77,7 +80,70 @@ def test_align_without_cuda_exits_nonzero(fixtures):
 @pytest.mark.parametrize("flag", [["-H"], ["--mesh", "2"], ["--index-shards", "2"],
                                   ["--trace-dir", "t"], ["--engine", "device"]])
 def test_unsupported_flags_are_rejected(fixtures, flag):
+    """The multi-device flags are still rejected. -H, --trace-dir and
+    --engine device, once rejected, now give the JAX CLI's bytes."""
+    d, ref, reads = fixtures
+    argv = ["align", ref, reads, "-o", str(d / "f.paf")]
+    if flag[0] in ("--mesh", "--index-shards"):
+        with pytest.raises(SystemExit) as e:
+            tcli.main([*argv, "--device", "cpu", *flag])
+        assert e.value.code != 0
+        return
+    port_flag = [flag[0], str(d / "trace")] if flag[0] == "--trace-dir" else flag
+    assert tcli.main([*argv, "--device", "cpu", *port_flag]) == 0
+    got = (d / "f.paf").read_bytes()
+    jflag = [] if flag[0] == "--trace-dir" else flag
+    assert jcli.main([*argv, "--engine", "device", *jflag]) == 0
+    assert got == (d / "f.paf").read_bytes() and got.count(b"\n") >= 15
+    if flag[0] == "--trace-dir":
+        assert (d / "trace" / "trace.json").stat().st_size > 0
+
+
+def test_align_host_engine_equals_jax(fixtures):
+    d, ref, reads = fixtures
+    out = []
+    for main in (tcli.main, jcli.main):
+        assert main(["align", ref, reads, "--engine", "host", "-o", str(d / "h.paf")]) == 0
+        out.append((d / "h.paf").read_bytes())
+    assert out[0] == out[1] and out[0].count(b"\n") >= 15
+
+
+@pytest.mark.parametrize("engine", ["auto", "native", "device", "host"])
+def test_index_equals_jax_cli(fixtures, engine, capsys):
+    """Same stdout and the same dumped .mmi bytes, engine by engine; the
+    port's device engine runs on --device."""
+    d, ref, _reads = fixtures
+    out = []
+    for main, extra in ((tcli.main, ["--device", "cpu"]), (jcli.main, [])):
+        mmi = d / f"{engine}.{len(out)}.mmi"
+        assert main(["index", ref, "-d", str(mmi), "--engine", engine, *extra]) == 0
+        out.append((capsys.readouterr().out, mmi.read_bytes()))
+    assert out[0] == out[1]
+    assert out[0][0].startswith("kmer size: 15; skip: 10; is_hpc: 0") and len(out[0][1]) > 1000
+
+
+@pytest.mark.parametrize("command", ["anchors", "chain"])
+@pytest.mark.parametrize("k", [15, 14])
+@pytest.mark.parametrize("engine", ["device", "host"])
+def test_anchors_and_chain_equal_jax_cli(fixtures, command, k, engine, capsys):
     _d, ref, reads = fixtures
-    with pytest.raises(SystemExit) as e:
-        tcli.main(["align", ref, reads, "--device", "cpu", *flag])
-    assert e.value.code != 0
+    argv = [command, ref, reads, "-k", str(k), "--engine", engine]
+    assert tcli.main([*argv, "--device", "cpu"]) == 0
+    got = capsys.readouterr().out
+    assert jcli.main(argv) == 0
+    assert got == capsys.readouterr().out
+    n = int(got.split("\n")[0].split(": ")[1])
+    assert n > 10, got
+
+
+def test_anchor_overflow_goes_to_the_host_oracle(fixtures, capsys, monkeypatch):
+    """A query that overflows the device capacities takes the host
+    oracle's anchors (the JAX CLI's contract), said on stderr."""
+    _d, ref, reads = fixtures
+    argv = ["anchors", ref, reads, "--device", "cpu"]
+    assert tcli.main([*argv, "--engine", "host"]) == 0
+    want = capsys.readouterr().out
+    monkeypatch.setattr(tcli, "_device_anchors", lambda *a: None)
+    assert tcli.main([*argv, "--engine", "device"]) == 0
+    got = capsys.readouterr()
+    assert got.out == want and "overflow" in got.err

@@ -10,6 +10,7 @@ import torch
 
 from minimap2_rs_torch.device import resolve_device
 from minimap2_rs_torch.kernels.chain_dp import chain_dp_aux_batch, chain_dp_batch
+from minimap2_rs_torch.kernels.window_scan import window_scan
 from minimap2_rs_torch.ops.chain_ops import ChainScalars, log2_table
 
 torch.set_num_threads(2)
@@ -23,8 +24,9 @@ def test_port_imports_no_jax():
         for p in (ROOT / "minimap2_rs_torch").rglob("*.py")
     )
     mods = [m[: -len(".__init__")] if m.endswith(".__init__") else m for m in mods]
-    assert "minimap2_rs_torch.models.mapper" in mods
-    assert "minimap2_rs_torch.cli" in mods
+    for m in ("models.mapper", "models.index_builder", "cli", "ops.sketch_scan",
+              "ops.index_build", "ops.extend_ops", "kernels.window_scan"):
+        assert f"minimap2_rs_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -90,3 +92,28 @@ def test_cuda_request_without_cuda_raises():
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def _scan_args(B=2, L=16):
+    z = lambda dt: torch.zeros((B, L), dtype=dt)
+    return [z(torch.int64), z(torch.int64), z(torch.int32),
+            torch.zeros(B, dtype=torch.int32), torch.ones(B, dtype=torch.bool)]
+
+
+@pytest.mark.parametrize("bad", ["dtype", "noncontig", "shape", "w", "k", "device"])
+def test_window_scan_wrapper_rejects_bad_inputs(bad):
+    args, w, k = _scan_args(), 10, 14
+    if bad == "dtype":
+        args[2] = args[2].to(torch.int64)
+    elif bad == "noncontig":
+        args[0] = torch.zeros((16, 2), dtype=torch.int64).t()
+    elif bad == "shape":
+        args[3] = torch.zeros(3, dtype=torch.int32)
+    elif bad == "w":
+        w = 256
+    elif bad == "k":
+        k = 29
+    elif bad == "device":
+        args = [a.to("meta") for a in args]
+    with pytest.raises((TypeError, ValueError)):
+        window_scan(args[0], args[1], args[2], args[3], w, k, args[4])

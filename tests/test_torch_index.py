@@ -66,9 +66,25 @@ def test_index_lookup_matches_jax(both):
 
 
 def test_unported_layouts_raise(both):
-    _glen, _idx, t, _j = both
+    """The sharded index's two-phase entry (dm_entry == 2) is still not
+    ported and raises; the prefix fallback (no direct table), once
+    unported, now probes the full kv/prefix tables and finds every key
+    block the direct table finds."""
+    _glen, idx, t, _j = both
     q = torch.zeros(4, dtype=torch.int64)
-    for entry, slots in ((2, t.dm_slots), (t.dm_entry, 0)):
-        bad = tidx.DeviceIndex(**{**t.__dict__, "dm_entry": entry, "dm_slots": slots})
-        with pytest.raises(NotImplementedError):
-            tidx.index_lookup(bad, q)
+    bad = tidx.DeviceIndex(**{**t.__dict__, "dm_entry": 2})
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        tidx.index_lookup(bad, q)
+    kv, prefix, shift, S = tidx.plan_prefix_layout(idx.keys, 2 * idx.k)
+    kv[: idx.keys.shape[0], 2] = idx.starts.astype(np.uint32)
+    kv[: idx.keys.shape[0], 3] = idx.counts.astype(np.uint32)
+    flat = tidx.DeviceIndex.from_host(idx.keys, idx.starts, idx.counts, idx.positions,
+                                      key_bits=2 * idx.k)
+    fb = tidx.DeviceIndex(**{**flat.__dict__, "kv": tidx._t32(kv, "cpu"),
+                             "prefix": torch.from_numpy(prefix), "prefix_shift": shift,
+                             "bucket_slots": S, "dm_slots": 0})
+    keys = torch.from_numpy(idx.keys[::97].astype(np.int64))
+    start, count = tidx.index_lookup(fb, keys)
+    want = np.searchsorted(idx.keys, idx.keys[::97])
+    np.testing.assert_array_equal(start.numpy(), idx.starts[want])
+    np.testing.assert_array_equal(count.numpy(), idx.counts[want])

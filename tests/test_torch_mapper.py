@@ -83,8 +83,8 @@ def test_wire_fallbacks_equal_the_2bit_wire(small, monkeypatch, missing):
 
 def test_unported_paths_raise(small, monkeypatch):
     """The general path (min_cnt=1, and MM2T_NO_LITE at the default
-    min_cnt) is ported: its PAF bytes equal the JAX Mapper's. An even-k
-    index (the exact scan sketch) still raises."""
+    min_cnt) and an even-k index (the exact scan sketch), all once
+    unported, give the JAX Mapper's PAF bytes."""
     genome, idx, cp, mp = small
     rl = _corpus(genome)
     cp1 = ChainParams.defaults_for_k(K, min_cnt=1)
@@ -101,10 +101,12 @@ def test_unported_paths_raise(small, monkeypatch):
     assert blob.decode().split("\n")[:-1] == oracle_map(idx, rl, cp, mp)
     monkeypatch.delenv("MM2T_NO_LITE")
     idx16 = build_index([("chrA", genome[:20_000])], IndexParams(w=W, k=16))
-    m = tmapper.Mapper.from_oracle_index(idx16, ChainParams.defaults_for_k(16), mp,
-                                         device="cpu", **SMALL)
-    with pytest.raises(NotImplementedError):
-        m.map_reads_paf(rl[:2])
+    cp16 = ChainParams.defaults_for_k(16)
+    m = tmapper.Mapper.from_oracle_index(idx16, cp16, mp, device="cpu", **SMALL)
+    rl16 = rl + [("frag16", genome[3000:3400])]
+    blob = m.map_reads_paf(rl16)
+    assert blob == JaxMapper.from_oracle_index(idx16, cp16, mp, **SMALL).map_reads_paf(rl16)
+    assert b"frag16\t" in blob
 
 
 REPEAT = dict(buckets=(1024,), batch_size=32)

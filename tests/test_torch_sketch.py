@@ -1,7 +1,7 @@
 """The port's minimizer sketch and compaction against the JAX package's
-(ops/sketch.py: the u32 fast path for k <= 15, the u64 path for k 17-27)
-and against the reference scan of oracle/sketch.py: exact equality on
-seqsim reads with N runs."""
+(ops/sketch.py: the u32 fast path for k <= 15, the u64 path for k 17-27,
+the exact scan for even k, HPC spans) and against the reference scan of
+oracle/sketch.py: exact equality on seqsim reads with N runs."""
 
 import numpy as np
 import pytest
@@ -109,6 +109,16 @@ def test_sketch_equals_reference_scan(k, w):
 
 @pytest.mark.parametrize("k,hpc", [(14, False), (16, False), (15, True)])
 def test_unported_sketch_paths_raise(k, hpc):
+    """Even k (the exact scan) and HPC spans, once unported, now equal
+    the JAX package's sketch."""
     codes, lengths = _batch(L=64, n=2)
-    with pytest.raises(NotImplementedError):
-        tsketch.sketch_positions(torch.from_numpy(codes), torch.from_numpy(lengths), 10, k, hpc)
+    ks, ps, em = tsketch.sketch_positions(torch.from_numpy(codes), torch.from_numpy(lengths),
+                                          10, k, hpc)
+    jks, jps, jem = jsketch.sketch_positions(jnp.asarray(codes), jnp.asarray(lengths),
+                                             10, k, hpc)
+    hi, lo = _ks_pair(ks)
+    np.testing.assert_array_equal(hi, np.asarray(jks.hi))
+    np.testing.assert_array_equal(lo, np.asarray(jks.lo))
+    np.testing.assert_array_equal(ps.numpy(), np.asarray(jps).astype(np.int64))
+    np.testing.assert_array_equal(em.numpy(), np.asarray(jem))
+    assert em.any()
