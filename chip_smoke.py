@@ -36,17 +36,34 @@ parameters unless said otherwise).
 
 Each mapping phase's warm pass, and the CLI phase, keep the inputs their
 kernel launches got (one per kernel, shape class, band and capacity);
-the timed passes count the launches per kernel and shape. Afterwards each kernel is held bit
-for bit against its plain PyTorch version on those inputs (the window
-scan's long shape on 8 rows), and the dynamic-window shape, which no
-mapping path launches, on the headline's inputs at window 128.
+the timed passes count the launches per kernel and shape. Each
+long-read phase then maps once more with CUDA events around every lane
+kernel launch and prints their summed time beside the pass time.
+Afterwards each kernel is held bit for bit against its plain PyTorch
+version on those inputs (the window scan's long shape on 8 rows), and
+the dynamic-window shape, which no mapping path launches, on the
+headline's inputs at window 128. A synthetic phase holds both lane
+kernels against their plain versions on the edge cases: no valid
+anchor, n < H, A not a multiple of the block, forced score ties, and
+the largest general shape (A = 11,904, H = 5000).
+
+Every kernel row gets its bound from the inputs it was timed on: the
+candidate pairs the DP scores (the window scan: the positions), times
+the operations per pair counted from the kernel source, over the card's
+float32 rate, against the bytes each input read once and each output
+written once over its memory rate; the larger names what bounds it. The
+two lane rows also time the previous design, the warp-per-read
+template, on the same inputs (prev_design_ms).
 
 Exits non-zero, printing no result, when any phase fails or CUDA is
 unavailable.
 
-Only the JAX-free host modules of minimap2_rs_tpu (config, oracle,
-utils, runtime) are imported, as the port itself does; the script
-asserts that jax was never loaded.
+The script imports nothing of minimap2_rs_tpu: the host oracle, config,
+sequence simulator and native runtime are the port's own copies
+(minimap2_rs_torch.oracle, .config, .utils, .runtime). The native host
+runtime is built from the port's source (build/host/) and must load: a
+silent pure-Python postprocess would hide the production path. The
+script asserts that jax was never loaded.
 """
 
 from __future__ import annotations
@@ -92,13 +109,72 @@ def _time_ms(fn, reps: int = 5, warm: bool = True) -> float:
     return _median(times)
 
 
+# The card's peaks (H100 SXM data sheet, dense, at 700 W): float32 outside
+# the tensor cores, and device memory
+PEAK_F32_OPS = 67e12
+PEAK_BYTES = 3.35e12
+# Operations one candidate pair costs in score() of csrc/chain_dp.cu plus
+# the running-best update: the group compare, the two differences,
+# |dr - dq| (compare and subtract), six admissibility compares, two minima
+# (dg, sc), the penalty condition (two), the table index clamp, two
+# int-to-float conversions, three f32 multiplies and two adds, the
+# truncation, the penalty subtract, the add of f[j], and the compare and
+# two selects of the best: 29.
+CHAIN_OPS_PER_PAIR = 29
+# Operations of one position's step in csrc/window_scan.cu outside the
+# data-dependent rescan: the validity select, the ring write (two), the
+# l compares (two), the minimum compare, its update (three selects), the
+# slot compare and the slot advance (two): 12.
+SCAN_OPS_PER_POSITION = 12
+LIBRARY_NOTE = "no single PyTorch call computes a sequential chaining DP or a window scan"
+
+
+def _bound(ops: int, nbytes: int):
+    """(bound ms, what bounds it): the larger of the operations over the
+    float32 peak and the bytes over the memory rate."""
+    t_ops = ops / PEAK_F32_OPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _chain_bound(args, window: int, n_out: int, tab_len: int):
+    """(bound ms, bound_by, pairs) of one chain-DP call: the pairs
+    sum_b sum_{i < n_b} min(i, H), with n_b one past read b's last valid
+    anchor (the rows the kernel walks), times CHAIN_OPS_PER_PAIR; the
+    bytes of 4 (B, A) int32 inputs, n_out outputs and the log2 table."""
+    import torch
+
+    grp = args[0]
+    B, A = grp.shape
+    H = min(window, A)
+    pos = torch.arange(1, A + 1, device=grp.device, dtype=torch.int64)
+    n = torch.where(grp != -1, pos, 0).amax(dim=1)
+    pairs = int(torch.where(n <= H + 1, n * (n - 1) // 2,
+                            H * (H + 1) // 2 + (n - 1 - H) * H).sum())
+    nbytes = (4 + n_out) * B * A * 4 + tab_len * 4
+    return (*_bound(pairs * CHAIN_OPS_PER_PAIR, nbytes), pairs)
+
+
+def _scan_bound(args):
+    """(bound ms, bound_by) of one window-scan call: the positions
+    sum_b lengths[b] times SCAN_OPS_PER_POSITION; the bytes of ks and ps
+    (int64), l_eff (int32), lengths and emit_final, and the emitted mask
+    (one byte a position)."""
+    ks, ps, l_eff, lengths, emit_final = args
+    B, L = ks.shape
+    positions = int(lengths.long().sum())
+    nbytes = B * L * (8 + 8 + 4 + 1) + B * (4 + 1)
+    return _bound(positions * SCAN_OPS_PER_POSITION, nbytes)
+
+
 def _kernel_vs_plain(entries, tab, aux: bool, window=None, plain_reps: int = 5):
     """torch.equal of kernel and plain outputs on every captured input
     (entries: [(args, scalars, window, max_chain_skip)]; `window`
     overrides the captured one), plus both times (ms, CUDA events,
-    median) on the largest normal-band launch, whose (B, A) is returned
-    too. aux picks the variant: (f, cnt, sq, sr) or (f, prev). Long
-    shapes time the plain version with fewer repeats."""
+    median) on the largest normal-band launch, which is returned too as
+    (args, scalars, window, max_chain_skip). aux picks the variant:
+    (f, cnt, sq, sr) or (f, prev). Long shapes time the plain version
+    with fewer repeats."""
     import torch
 
     from minimap2_rs_torch.kernels import chain_dp as kchain
@@ -131,7 +207,7 @@ def _kernel_vs_plain(entries, tab, aux: bool, window=None, plain_reps: int = 5):
     ms = _time_ms(lambda: fn(*args, scal, win, tab, skip))
     plain_ms = _time_ms(lambda: ref(*args, scal, win, tab, max_chain_skip=skip),
                         reps=plain_reps)
-    return err, ms, plain_ms, tuple(args[0].shape)
+    return err, ms, plain_ms, (args, scal, win, skip)
 
 
 def _scan_vs_plain(entries, max_rows=None):
@@ -158,11 +234,149 @@ def _scan_vs_plain(entries, max_rows=None):
     # the comparison above has just run the plain loop on these inputs
     plain_ms = _time_ms(lambda: _window_scan_ref(*args[:4], w, k, args[4]), reps=1,
                         warm=False)
-    return ms, plain_ms, tuple(args[0].shape)
+    return ms, plain_ms, args
+
+
+@contextlib.contextmanager
+def _lane_timer():
+    """While the block runs, CUDA events bracket every launch of a lane
+    kernel (the _launch calls whose entry ends in "_lane"); yields the
+    list of (start, end) event pairs."""
+    import torch
+
+    from minimap2_rs_torch.kernels import chain_dp as kchain
+
+    orig = kchain._launch
+    events = []
+
+    def timed(entry, *args, **kw):
+        if not entry.endswith("_lane"):
+            return orig(entry, *args, **kw)
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        out = orig(entry, *args, **kw)
+        t1.record()
+        events.append((t0, t1))
+        return out
+
+    kchain._launch = timed
+    try:
+        yield events
+    finally:
+        kchain._launch = orig
+
+
+def _lane_share(tag, mapper, reads):
+    """One more pass of `reads`, with every lane kernel launch timed:
+    prints the pass time, the lane launches' summed time and its share."""
+    import torch
+
+    with _lane_timer() as events:
+        t0 = time.perf_counter()
+        mapper.map_reads_paf(reads)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    lane_ms = sum(a.elapsed_time(b) for a, b in events)
+    print(f"{tag} lane kernel over one pass: {len(events)} launches, "
+          f"{lane_ms:.4f} ms summed (CUDA events), pass {dt:.4f} s, "
+          f"share {lane_ms / 1e3 / dt:.4f}")
+
+
+def _synthetic_lane_phase(tab_default):
+    """Both lane kernels against their plain versions on the edge cases
+    no mapping phase guarantees; each must be torch.equal and must take
+    the lane design (lane_design)."""
+    import numpy as np
+    import torch
+
+    from minimap2_rs_torch.config import ChainParams
+    from minimap2_rs_torch.kernels import chain_dp as kchain
+    from minimap2_rs_torch.ops import chain_ops
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(59)
+
+    def chains(B, A, n_of):
+        """Per read n_of(b) anchors sorted like the mapper's (colinear
+        runs with jitter on two strands, noise, 5% exact duplicates),
+        padding after."""
+        cols = np.stack([np.full((B, A), -1, np.int64), np.full((B, A), -1, np.int64),
+                         np.full((B, A), -1, np.int64), np.full((B, A), 255, np.int64)])
+        for b in range(B):
+            n = n_of(b)
+            g, r, q = [], [], []
+            while len(g) < n:
+                m = int(rng.integers(5, 60))
+                strand = int(rng.integers(0, 2)) << 31
+                r0, q0 = int(rng.integers(0, 200_000)), int(rng.integers(0, 20_000))
+                steps = rng.integers(1, 40, size=m)
+                g += [strand] * m
+                r += list(r0 + np.cumsum(steps))
+                q += list(q0 + np.cumsum(np.maximum(steps + rng.integers(-3, 4, size=m), 1)))
+            g, r, q = np.array(g[:n]), np.array(r[:n]), np.array(q[:n])
+            dup = rng.random(n) < 0.05
+            g, r, q = np.r_[g, g[dup]][:n], np.r_[r, r[dup]][:n], np.r_[q, q[dup]][:n]
+            o = np.lexsort((q, r, g))
+            cols[0, b, :n], cols[1, b, :n], cols[2, b, :n] = g[o], r[o], q[o]
+            cols[3, b, :n] = 15
+        return cols
+
+    def ties(B, A):
+        """Blocks of four anchors, one group each, where the fourth scores
+        43 from the second and the third alike (bw 60, no linear
+        penalties): the larger j must win."""
+        cols = np.stack([np.full((B, A), -1, np.int64), np.full((B, A), -1, np.int64),
+                         np.full((B, A), -1, np.int64), np.full((B, A), 255, np.int64)])
+        nb = A // 4
+        blk = np.arange(nb)
+        for b in range(B):
+            cols[0, b, :4 * nb] = np.repeat(blk, 4)
+            cols[1, b, :4 * nb] = np.tile([0, 100, 250, 265], nb) + 1000 * np.repeat(blk, 4)
+            cols[2, b, :4 * nb] = np.tile([0, 100, 150, 215], nb)
+            cols[3, b, :4 * nb] = np.tile([15, 15, 30, 15], nb)
+        return cols
+
+    scal = chain_ops.chain_scalars_from_params(ChainParams.defaults_for_k(15))
+    tie_scal = chain_ops.chain_scalars_from_params(
+        ChainParams.defaults_for_k(15, bw=60, chn_pen_gap=0.0, chn_pen_skip=0.0))
+    cases = [
+        # (name, cols, scalars, lite window, general window)
+        ("n = 0", chains(4, 1100, lambda b: 0), scal, 1024, 5000),
+        ("n < H", chains(8, 4480, lambda b: int(rng.integers(1, 1000))), scal, 1024, 4480),
+        ("A = 2077, not a multiple of 256",
+         chains(8, 2077, lambda b: 2077 if b % 2 else int(rng.integers(1000, 2077))),
+         scal, 1024, 5000),
+        ("forced ties (A = 1100)", ties(4, 1100), tie_scal, 1024, 5000),
+        ("largest general shape (A = 11904, H = 5000)",
+         chains(4, 11904, lambda b: 11904 - 700 * b), scal, 5000, 5000),
+    ]
+    for name, cols, sc, win_lite, win_gen in cases:
+        args = tuple(torch.from_numpy(c.astype(np.uint32).view(np.int32).copy()).to(dev)
+                     for c in cols)
+        tab = tab_default if sc is scal else chain_ops.log2_table(sc.bw + 1).to(dev)
+        A = args[0].shape[1]
+        for aux, win in ((True, win_lite), (False, win_gen)):
+            if not kchain.lane_design(A, win, aux, None):
+                raise AssertionError(f"synthetic {name}: not a lane-design shape")
+            fn = kchain.chain_dp_aux_batch if aux else kchain.chain_dp_batch
+            ref = chain_ops.chain_dp_aux_batch_ref if aux else chain_ops.chain_dp_batch_ref
+            got, want = fn(*args, sc, win, tab), ref(*args, sc, win, tab)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                if not torch.equal(g, w):
+                    bad = (g != w).nonzero()[:5].tolist()
+                    raise AssertionError(f"synthetic {name} (aux={aux}): lane kernel != "
+                                         f"plain at {bad}")
+            n_win = int((want[1] >= (2 if aux else 0)).sum())
+            ring = kchain.lane_ring_bytes(min(win, A), aux)
+            print(f"synthetic lane {'aux' if aux else '(f, prev)'} [{name}]: "
+                  f"(B, A) = {tuple(args[0].shape)}, H = {min(win, A)}, ring {ring} B: "
+                  f"equal to the plain version ({n_win} chained rows)")
 
 
 def _parity(tag, idx, sample, lines, cp, mp):
-    from minimap2_rs_tpu.oracle.pipeline import map_reads as oracle_map
+    from minimap2_rs_torch.oracle.pipeline import map_reads as oracle_map
 
     host = oracle_map(idx, sample, cp, mp)
     names = {n for n, _ in sample}
@@ -180,7 +394,7 @@ def _parity(tag, idx, sample, lines, cp, mp):
 
 def _agree(idx, sample, lines, cp, mp) -> int:
     """Reads of `sample` whose lines equal the oracle's under cp."""
-    from minimap2_rs_tpu.oracle.pipeline import align_read
+    from minimap2_rs_torch.oracle.pipeline import align_read
 
     by_name: dict = {}
     for l in lines:
@@ -213,7 +427,7 @@ class _OracleRescues:
         self.bw, self.n = cp.bw, 0
 
     def __enter__(self):
-        from minimap2_rs_tpu.oracle import lchain
+        from minimap2_rs_torch.oracle import lchain
 
         self._orig = orig = lchain.chain_dp_all
 
@@ -225,7 +439,7 @@ class _OracleRescues:
         return self
 
     def __exit__(self, *exc):
-        from minimap2_rs_tpu.oracle import lchain
+        from minimap2_rs_torch.oracle import lchain
 
         lchain.chain_dp_all = self._orig
 
@@ -320,13 +534,13 @@ def main() -> int:
 
     import numpy as np
 
-    from minimap2_rs_tpu.config import ChainParams, IndexParams, MapParams
-    from minimap2_rs_tpu.runtime.host import native_available
-    from minimap2_rs_tpu.utils.seqsim import random_genome, simulate_reads
-    from minimap2_rs_torch.kernels import build as kbuild
     from minimap2_rs_torch import cli as tcli
+    from minimap2_rs_torch.config import ChainParams, IndexParams, MapParams
+    from minimap2_rs_torch.kernels import build as kbuild
     from minimap2_rs_torch.models.index_builder import build_index_device, build_index_native
     from minimap2_rs_torch.models.mapper import Mapper
+    from minimap2_rs_torch.runtime import host as nhost
+    from minimap2_rs_torch.utils.seqsim import random_genome, simulate_reads
 
     t_start = time.perf_counter()
     card = _nvidia_smi()
@@ -334,12 +548,19 @@ def main() -> int:
     nvcc = subprocess.run([kbuild._nvcc(), "--version"], capture_output=True,
                           text=True).stdout.strip().splitlines()[-1]
     print(f"torch {torch.__version__} cuda {torch.version.cuda} nvcc: {nvcc}")
-    print(f"native host runtime loaded: {native_available()}")
 
-    # ---- build ------------------------------------------------------
+    # ---- build: the kernels (nvcc) and the native host runtime (g++) ----
+    from concurrent.futures import ThreadPoolExecutor
+
     t0 = time.perf_counter()
-    kbuild.library()
-    print(f"kernel library built in {time.perf_counter() - t0:.1f} s")
+    with ThreadPoolExecutor(2) as ex:
+        kernels_built = ex.submit(kbuild.library)
+        host_loaded = ex.submit(nhost.native_available)
+        kernels_built.result()
+        if not host_loaded.result():
+            raise RuntimeError("the native host runtime did not build or load")
+    print(f"kernel library and native host runtime ({nhost.build()}, from the "
+          f"port's source) built in {time.perf_counter() - t0:.1f} s")
     for line in kbuild.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
@@ -380,6 +601,7 @@ def main() -> int:
                                            ["chain_dp_aux/lane"], total)
     n_par = _parity("lite longread", idx, lreads, llines, cp, mp)
     print(f"lite long-read parity vs oracle: {n_par} reads byte-identical")
+    _lane_share("lite long-read", mapper, lreads)
 
     # ---- general headline: align -n 1 -m 10, 1 warm + 3 timed passes --
     # the device DP scores the window exactly, so the gate is the oracle
@@ -420,6 +642,7 @@ def main() -> int:
     print(f"general long-read parity vs exact-window oracle: {n_par} reads byte-identical")
     print(f"general long reads equal to the default oracle: "
           f"{_agree(idx, lreads, gllines, cp_gen, mp)} of {n_par} reads")
+    _lane_share("general long-read", gmapper, lreads)
 
     # ---- hifi_k19: lite path at k=19 -----------------------------------
     t0 = time.perf_counter()
@@ -579,41 +802,70 @@ def main() -> int:
          None, 1),
         ("chain_dp_prune (CLI chain)", None, cap_cli, "chain_dp_prune/lane", None, 1),
     ]
+    from minimap2_rs_torch.kernels import chain_dp as kchain
+
     for name, line, cap, key, window, plain_reps in rows:
         entries = _launched(cap, key)
         variant = key.split("/")[0]
+        aux = variant.startswith("chain_dp_aux")
         shapes = [(tuple(a[0].shape), s.bw, window or w) for a, s, w, _skip in entries]
         held = f"{variant}/dynamic" if window else key
         if window and min(sh[1] for sh, _b, _w in shapes) <= window:
             raise AssertionError(f"{name}: window {window} is not below A")
-        err, ms, plain_ms, timed = _kernel_vs_plain(
-            entries, tab, variant.startswith("chain_dp_aux"), window, plain_reps)
+        err, ms, plain_ms, (args, scal, win, skip) = _kernel_vs_plain(
+            entries, tab, aux, window, plain_reps)
+        timed = tuple(args[0].shape)
+        bound_ms, bound_by, pairs = _chain_bound(args, win, 4 if aux else 2, tab.shape[0])
+        n_launch = total.get(held, 0)
+        extra = {}
+        if skip is None and kchain.lane_design(timed[1], win, aux, None):
+            # the previous design on the same inputs, in the same call
+            extra["prev_design_ms"] = _time_ms(
+                lambda: kchain.template_batch(aux, *args, scal, win, tab))
+            extra["ring_bytes"] = kchain.lane_ring_bytes(min(win, timed[1]), aux)
         print(f"{name}: (B, A), bw, window = {shapes}, all equal; timed at "
-              f"{timed}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+              f"{timed}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}; {pairs} pairs x {CHAIN_OPS_PER_PAIR} ops)"
+              + "".join(f", {k} {v:.4f}" if isinstance(v, float) else f", {k} {v}"
+                        for k, v in extra.items())
+              + f"; launches x (ms - bound) = {n_launch * (ms - bound_ms):.4f} ms")
         # the pruned instances replace the JAX lax.scan DP with max_chain_skip
         replaces = (f"{pallas}:{line}" if line else "minimap2_rs_tpu/ops/chain_ops.py:"
-                    + ("219" if variant.startswith("chain_dp_aux") else "141"))
+                    + ("219" if aux else "141"))
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=total.get(held, 0), max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            shape=held.split("/")[1], timed_at=timed, on_main_path=total.get(held, 0) > 0,
+            launches=n_launch, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            library_note=LIBRARY_NOTE, **extra,
+            shape=held.split("/")[1], timed_at=timed, on_main_path=n_launch > 0,
         ))
 
     # the window scan: every short entry whole, the long ones on 8 rows
     for cls, max_rows in (("short", None), ("long", 8)):
         key = f"window_scan/{cls}"
         entries = _launched(cap_14, key)
-        ms, plain_ms, timed = _scan_vs_plain(entries, max_rows)
+        ms, plain_ms, args = _scan_vs_plain(entries, max_rows)
+        timed = tuple(args[0].shape)
+        bound_ms, bound_by = _scan_bound(args)
         shapes = [(tuple(a[0][:max_rows].shape), w, k) for a, w, k in entries]
         print(f"window_scan ({cls}): (B, L), w, k = {shapes}, all equal; timed at "
-              f"{timed}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+              f"{timed}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.6f} ms ({bound_by}); launches x (ms - bound) = "
+              f"{total.get(key, 0) * (ms - bound_ms):.4f} ms")
         kernels.append(dict(
             name=f"window_scan (even_k14 {cls} reads)", route="cuda",
             source="minimap2_rs_torch/csrc/window_scan.cu",
             replaces="minimap2_rs_tpu/ops/sketch_scan.py:110",
             launches=total.get(key, 0), max_abs_err=0, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            library_note=LIBRARY_NOTE,
             shape=cls, timed_at=timed, on_main_path=total.get(key, 0) > 0,
         ))
+
+    # ---- the lane kernels on synthetic edge cases ------------------------
+    t0 = time.perf_counter()
+    _synthetic_lane_phase(tab)
+    print(f"synthetic lane phase {time.perf_counter() - t0:.1f} s")
 
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")

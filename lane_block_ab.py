@@ -1,0 +1,140 @@
+"""A/B of the chain-DP lane kernel's block size on one GPU.
+
+    python3 lane_block_ab.py
+
+Builds minimap2_rs_torch/csrc/chain_dp.cu three times, with
+kLaneThreads = 256, 512 and 1024 (one nvcc each, in parallel, into
+build/lane_ab/), then times the two lane entry points of each on the
+same inputs, in turns (256, 512, 1024, then 1024, 512, 256; CUDA events,
+median of 5 each), beside the warp-per-read template and the bound
+(chip_smoke._chain_bound). Inputs, made from a seed: B = 128 reads of
+A = 4480 anchor slots all valid; the same with every other read empty;
+B = 16 at A = 11,904. Each is run at H = 1024 and 5000 (aux) and 5000
+((f, prev)), and every output must be torch.equal to the template's.
+Needs one CUDA GPU; exits non-zero otherwise or on any mismatch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import chip_smoke as cs
+
+BLOCKS = (256, 512, 1024)
+
+
+def _build(out: Path):
+    """One library per block size; returns {T: ctypes.CDLL}."""
+    from minimap2_rs_torch.kernels import build as kbuild
+
+    src = (kbuild.CSRC / "chain_dp.cu").read_text()
+    pat = re.compile(r"constexpr int kLaneThreads = \d+;")
+    if len(pat.findall(src)) != 1:
+        raise RuntimeError("chain_dp.cu: kLaneThreads not found once")
+    procs = {}
+    for T in BLOCKS:
+        cu = out / f"v{T}.cu"
+        cu.write_text(pat.sub(f"constexpr int kLaneThreads = {T};", src))
+        procs[T] = subprocess.Popen(
+            [kbuild._nvcc(), *kbuild.NVCC_FLAGS, "-shared", "-o", str(out / f"v{T}.so"),
+             str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    libs = {}
+    for T, p in procs.items():
+        log = p.communicate()[0]
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed for kLaneThreads = {T}:\n{log}")
+        regs = [l.split(":", 1)[1].strip() for l in log.splitlines() if "registers" in l]
+        print(f"kLaneThreads = {T}: ptxas {regs}")
+        lib = ctypes.CDLL(str(out / f"v{T}.so"))
+        for fn, n_out in ((lib.mm2t_chain_dp_aux_lane, 4), (lib.mm2t_chain_dp_lane, 2)):
+            fn.restype = ci
+            fn.argtypes = [vp] * 4 + [vp] * n_out + [vp, ci] + [ci] * 6 + [cf, cf, vp]
+        libs[T] = lib
+    return libs
+
+
+def _call(lib, aux, args, scal, H, tab):
+    import torch
+
+    B, A = args[0].shape
+    outs = [torch.empty((B, A), dtype=torch.int32, device=args[0].device)
+            for _ in range(4 if aux else 2)]
+    fn = lib.mm2t_chain_dp_aux_lane if aux else lib.mm2t_chain_dp_lane
+    err = fn(*[a.data_ptr() for a in args], *[o.data_ptr() for o in outs], tab.data_ptr(),
+             tab.shape[0], B, A, min(H, A), scal.max_dist_x, scal.max_dist_y, scal.bw,
+             scal.chn_pen_gap, scal.chn_pen_skip, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"lane launch refused: cudaError {err}")
+    return outs
+
+
+def _inputs(rng, B, A, n_of):
+    """(grp, rpos, qpos, span) on the card: read b holds n_of(b) anchors of
+    one group along a jittered diagonal, padding after."""
+    import numpy as np
+    import torch
+
+    cols = np.stack([np.full((B, A), -1, np.int64)] * 3 + [np.full((B, A), 255, np.int64)])
+    for b in range(B):
+        n = n_of(b)
+        r = np.sort(rng.integers(0, 300_000, n))
+        q = np.clip(r // 20 + rng.integers(-50, 50, n), 0, None)
+        cols[0, b, :n], cols[1, b, :n], cols[2, b, :n], cols[3, b, :n] = 0, r, q, 15
+    return tuple(torch.from_numpy(c.astype(np.uint32).view(np.int32).copy()).cuda()
+                 for c in cols)
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("lane_block_ab: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    from minimap2_rs_torch.config import ChainParams
+    from minimap2_rs_torch.kernels import chain_dp as kchain
+    from minimap2_rs_torch.ops.chain_ops import chain_scalars_from_params, log2_table
+
+    print(cs._nvidia_smi())
+    out = Path(__file__).resolve().parent / "build" / "lane_ab"
+    out.mkdir(parents=True, exist_ok=True)
+    libs = _build(out)
+    rng = np.random.default_rng(1)
+    tab = log2_table(20001).cuda()
+    scal = chain_scalars_from_params(ChainParams.defaults_for_k(15))
+    cases = [
+        ("full B=128 A=4480", _inputs(rng, 128, 4480, lambda b: 4480)),
+        ("half empty B=128 A=4480, n 500-4480", _inputs(
+            rng, 128, 4480, lambda b: 0 if b % 2 else int(rng.integers(500, 4481)))),
+        ("B=16 A=11904", _inputs(rng, 16, 11904, lambda b: 11904 - 500 * b)),
+    ]
+    for name, args in cases:
+        A = args[0].shape[1]
+        for aux, H in ((True, 1024), (False, 5000), (True, 5000)):
+            ref = kchain.template_batch(aux, *args, scal, H, tab)
+            res: dict = {}
+            for order in (BLOCKS, BLOCKS[::-1]):
+                for T in order:
+                    got = _call(libs[T], aux, args, scal, H, tab)
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(g, w) for g, w in zip(got, ref)):
+                        raise AssertionError(f"{name}, T={T}, aux={aux}: != template")
+                    res.setdefault(T, []).append(
+                        cs._time_ms(lambda: _call(libs[T], aux, args, scal, H, tab)))
+            tmpl = cs._time_ms(lambda: kchain.template_batch(aux, *args, scal, H, tab))
+            bound_ms, bound_by, _pairs = cs._chain_bound(args, H, 4 if aux else 2,
+                                                         tab.shape[0])
+            print(f"{name} aux={aux} H={min(H, A)}: "
+                  + ", ".join(f"T={T} {v[0]:.4f}/{v[1]:.4f} ms" for T, v in res.items())
+                  + f"; template {tmpl:.4f} ms; bound {bound_ms:.4f} ms ({bound_by})",
+                  flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

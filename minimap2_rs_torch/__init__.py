@@ -9,9 +9,11 @@ for odd k <= 27 and non-HPC queries, and the `align` command
 (`python -m minimap2_rs_torch.cli align`). The chaining DP is a CUDA
 kernel written for Hopper (`csrc/chain_dp.cu`) in two variants.
 
-The port imports torch and numpy and never jax. From the reference
-package it reuses only the JAX-free host modules: `config`, `oracle`,
-`utils`, `io` and `runtime.host` (the native C++ formatter and encoder).
+The port imports torch and numpy, never jax, and nothing of
+`minimap2_rs_tpu`: it keeps its own copies of the host modules
+(`config`, `oracle`, `utils`, `io`, and `runtime.host` with the C++
+source of the native formatter, encoder and postprocess, which it
+compiles at first use into build/host/).
 
 Devices are explicit: every entry point takes `device`, and nothing
 falls back to the CPU because CUDA is missing.

@@ -23,26 +23,24 @@ torch.profiler trace of the mapping. The multi-device flags (--mesh,
 from __future__ import annotations
 
 import argparse
-import contextlib
-import os
 import sys
 import time
 
 import numpy as np
 
-from minimap2_rs_tpu.config import ChainParams, IndexParams, MapParams, apply_preset
-from minimap2_rs_tpu.io.fasta import read_fasta, read_fasta_first
-from minimap2_rs_tpu.oracle.index import OracleIndex, build_index
-from minimap2_rs_tpu.oracle.lchain import backtrack, chain_dp
-from minimap2_rs_tpu.oracle.pipeline import map_reads
-from minimap2_rs_tpu.oracle.seeds import (
+from .config import ChainParams, IndexParams, MapParams, apply_preset
+from .device import resolve_device
+from .io.fasta import read_fasta, read_fasta_first
+from .oracle.index import OracleIndex, build_index
+from .oracle.lchain import backtrack, chain_dp
+from .oracle.pipeline import map_reads
+from .oracle.seeds import (
     build_anchors,
     collect_query_minimizers,
     filter_query_minimizers,
 )
-from minimap2_rs_tpu.utils.profiling import print_stage_stats
-
-from .device import resolve_device
+from .utils.packing import nt4_encode
+from .utils.profiling import device_trace, print_stage_stats
 
 
 def _add_common(p, engines, default="auto"):
@@ -137,25 +135,6 @@ def load_index(path: str, w: int, k: int, flag: int = 0) -> OracleIndex:
         )
 
 
-@contextlib.contextmanager
-def device_trace(trace_dir: str | None, device):
-    """A torch.profiler trace of the block, written to
-    trace_dir/trace.json (the counterpart of the JAX package's
-    utils/profiling.device_trace); nothing when trace_dir is unset."""
-    if not trace_dir:
-        yield
-        return
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU]
-    if device is not None and device.type == "cuda":
-        acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
-        yield
-    os.makedirs(trace_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
-
-
 def index(args, ap) -> int:
     params = IndexParams(w=args.w, k=args.k, bucket_bits=args.bucket_bits,
                          flag=1 if args.hpc else 0)
@@ -188,8 +167,6 @@ def _device_anchors(idx: OracleIndex, q: bytes, mid_occ: int, device) -> np.ndar
     """(n, 2) uint64 anchors of one query computed on `device` (JAX
     cli.py:268-302), or None on a capacity overflow (M = L, A = 4L)."""
     import torch
-
-    from minimap2_rs_tpu.utils.packing import nt4_encode
 
     from .models.stages import sketch_to_anchors
     from .ops.index_ops import DeviceIndex

@@ -1,19 +1,21 @@
 // Colinear chaining DP for Hopper: two variants, each with an exact
-// window and a pruned instance.
+// window and a pruned instance, and a block-per-read kernel for the exact
+// window at the long-read shapes.
 //
 // Replaces all six Pallas kernels of minimap2_rs_tpu/ops/chain_pallas.py.
 // Their split into static-sublane, dynamic-sublane and lane layouts
-// existed only for the TPU's VMEM and (8, 128) tiling; here one kernel
-// template with a runtime window H serves every shape:
+// existed only for the TPU's VMEM and (8, 128) tiling; here a runtime
+// window H serves every shape, and the shape picks one of two designs
+// (kernels/chain_dp.py decides, by A, H and the pruning):
 //
 //   mm2t_chain_dp_aux (kAux = true) -> (f, cnt, sq, sr), for the lite path:
 //     _static_aux_kernel     (A < 1024, full window)
 //     _chain_aux_kernel      (A < 1024, truncated window)
-//     _chain_aux_kernel_lane (A >= 1024)
+//     _chain_aux_kernel_lane (A >= 1024): mm2t_chain_dp_aux_lane
 //   mm2t_chain_dp     (kAux = false) -> (f, prev), for the general path:
 //     _static_kernel         (A < 1024, full window)
 //     _chain_kernel          (A < 1024, truncated window)
-//     _chain_kernel_lane     (A >= 1024)
+//     _chain_kernel_lane     (A >= 1024): mm2t_chain_dp_lane
 //
 // Contract (chain_ops.chain_dp_batch / chain_dp_aux_batch in the JAX
 // package): for anchor i of read b, the best f[j] + comput_sc(i, j) over
@@ -22,22 +24,22 @@
 // sq/sr = own coordinates. Otherwise prev = the chosen j, and cnt, sq, sr
 // follow it (cnt + 1, its chain start).
 //
-// Design: one warp per read. The DP is sequential in i, so the warp
+// Design of the warp-per-read template (chain_dp_kernel: A < 1024, the
+// pruned instances, and a lane-shaped ring over a block's shared
+// memory): one warp per read. The DP is sequential in i, so the warp
 // walks i in order; its 32 lanes stride over the j window, each keeping
 // its best (score, j), and a shuffle reduction picks the max score and
 // then the largest j. Lane 0 writes row i; __syncwarp() orders that
 // write before row i+1 reads it. The window is read from global memory
-// (it stays L1/L2-resident): a long read at A ~ 12k needs 8 arrays x 4 B
-// x A, more than a block's 227 KB of shared memory. The (f, prev)
-// variant has no dependent load after the reduction: prev is the index
-// itself, where the aux variant reads cnt/sq/sr at the chosen j.
-//
-// What bounds it on this card: the latency of each sequential step (a
-// window sweep, a 5-level shuffle reduction and, for aux, the dependent
-// load of the chosen predecessor's statistics) and the global-memory
-// window reads, not FLOPs. Parallelism is one warp per read (1024 warps
-// at the short-read shape, one wave on 132 SMs; 128 warps at the
-// longest general-path shape, A = 11,904 with a 5000-slot window).
+// (it stays L1/L2-resident). The (f, prev) variant has no dependent load
+// after the reduction: prev is the index itself, where the aux variant
+// reads cnt/sq/sr at the chosen j. What bounds it: the latency of each
+// sequential step (a window sweep of dependent global loads, a 5-level
+// shuffle and, for aux, the dependent load of the chosen predecessor's
+// statistics), not FLOPs. At the short-read shape it runs 1024 warps, one
+// wave on 132 SMs; at the lane shapes it ran 128 warps, one per SM, at
+// about 2% of the card's bound (PERF.md), hence the lane kernel below,
+// whose header gives its design.
 //
 // Exactness: the penalty is (int)(pen_gap*dd + pen_skip*dg
 // + 0.5f*log2(dd+1)) in f32 with no FMA contraction (__fmul_rn /
@@ -64,10 +66,10 @@
 // so it needs no reset between rows. The aux instance keeps prev in a
 // per-read scratch as well, for the marks.
 //
-// ptxas -v for sm_90a (build log of an H100 run), as <kAux, kPrune>:
-// <false, false> 44 registers, <true, false> 48, <false, true> 32 and
-// <true, true> 40 (both with 1 KB of shared memory); all 0 bytes of
-// stack and no spill stores or loads.
+// ptxas -v for sm_90a (build log of an H100 run, before the lane
+// kernel), as <kAux, kPrune>: <false, false> 44 registers, <true, false>
+// 48, <false, true> 32 and <true, true> 40 (both with 1 KB of shared
+// memory); all 0 bytes of stack and no spill stores or loads.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -78,21 +80,18 @@ constexpr int kNegInf = -(1 << 30);
 constexpr int kWarpsPerBlock = 4;
 constexpr unsigned kFull = 0xffffffffu;
 
-// comput_sc (lchain.rs:17-34) of anchor j as a predecessor of i, plus
-// f[j]; false when j is not admissible
-__device__ __forceinline__ bool score(
-    int j, int gi, long long ri, long long qi, const int* g, const int* rp,
-    const int* qp, const int* sp, const int* fo, const float* log2tab,
+// comput_sc (lchain.rs:17-34) of a predecessor at (rj, qj) with span sj,
+// in anchor i's group, without f[j]; false when it is not admissible
+__device__ __forceinline__ bool comput_sc(
+    long long ri, long long qi, int rj, int qj, int sj, const float* log2tab,
     int tab_len, int mdx, int mdy, int bw, float pen_gap, float pen_skip,
     int* out) {
-  if (g[j] != gi) return false;
-  const long long dq = qi - qp[j];
-  const long long dr = ri - rp[j];
+  const long long dq = qi - qj;
+  const long long dr = ri - rj;
   const long long dd = dr > dq ? dr - dq : dq - dr;
   if (dq <= 0 || dq > mdx || dq > mdy || dr == 0 || dr > mdx || dd > bw)
     return false;
   const long long dg = dr < dq ? dr : dq;
-  const int sj = sp[j];
   int sc = (int)(sj < dg ? sj : dg);
   if (dd != 0 || dg > sj) {
     const int t = (int)(dd < tab_len - 1 ? dd : tab_len - 1);
@@ -100,8 +99,19 @@ __device__ __forceinline__ bool score(
                                 __fmul_rn(pen_skip, (float)dg));
     sc -= __float2int_rz(__fadd_rn(lin, __fmul_rn(0.5f, log2tab[t])));
   }
-  *out = sc + fo[j];
+  *out = sc;
   return true;
+}
+
+// comput_sc of anchor j of a read's global columns as a predecessor of i
+__device__ __forceinline__ bool score(
+    int j, int gi, long long ri, long long qi, const int* g, const int* rp,
+    const int* qp, const int* sp, const float* log2tab,
+    int tab_len, int mdx, int mdy, int bw, float pen_gap, float pen_skip,
+    int* out) {
+  if (g[j] != gi) return false;
+  return comput_sc(ri, qi, rp[j], qp[j], sp[j], log2tab, tab_len, mdx, mdy,
+                   bw, pen_gap, pen_skip, out);
 }
 
 // kAux: (f, cnt, sq, sr). !kAux: (f, prev); o2 and o3 are unused.
@@ -167,9 +177,10 @@ __global__ void chain_dp_kernel(
     if (!kPrune) {
       for (int j = max(0, i - H) + lane; j < i; j += 32) {
         int sc;
-        if (!score(j, gi, ri, qi, g, rp, qp, sp, fo, log2tab, tab_len, mdx,
-                   mdy, bw, pen_gap, pen_skip, &sc))
+        if (!score(j, gi, ri, qi, g, rp, qp, sp, log2tab, tab_len, mdx, mdy,
+                   bw, pen_gap, pen_skip, &sc))
           continue;
+        sc += fo[j];
         // j ascends per lane, so >= keeps this lane's largest tied j
         if (sc >= best) {
           best = sc;
@@ -195,8 +206,9 @@ __global__ void chain_dp_kernel(
         const int j = top - lane;
         int sc = 0;
         const bool ok = j >= lo &&
-            score(j, gi, ri, qi, g, rp, qp, sp, fo, log2tab, tab_len, mdx,
-                  mdy, bw, pen_gap, pen_skip, &sc);
+            score(j, gi, ri, qi, g, rp, qp, sp, log2tab, tab_len, mdx, mdy,
+                  bw, pen_gap, pen_skip, &sc);
+        if (ok) sc += fo[j];
         const unsigned okm = __ballot_sync(kFull, ok);
         s_sc[warp][lane] = sc;
         s_pv[warp][lane] = ok ? pv[j] : -1;
@@ -264,6 +276,239 @@ int launch(const void* grp, const void* rpos, const void* qpos,
   return (int)cudaGetLastError();
 }
 
+// ---- the block-per-read lane kernel (exact window, A >= 1024) ----------
+//
+// One block of kLaneThreads threads per read. The DP reads only the
+// window, so the window lives in dynamic shared memory as a ring of
+// R = H + kLaneTile slots, one column per array: grp, rpos, qpos, span, f
+// and, for aux, cnt, sq, sr. Row r sits in slot r mod R. Every kLaneTile
+// rows the block stores the next tile's input columns (held in registers
+// since the previous tile start, one row per thread, coalesced) into the
+// ring and loads the tile after it; R = H + kLaneTile keeps rows
+// [i - H, tile end) resident for every row i of the tile.
+//
+// Row i: each thread scores its share of [i - H, i) from shared memory
+// with comput_sc() (a slot's words loaded together, before any test) and
+// keeps its best (score, j), ties to the largest j; two hardware warp
+// reductions (__reduce_max_sync: the max score, then the largest j that
+// holds it) reduce each warp, warp leaders write the per-parity partial
+// arrays, one __syncthreads(), and every warp reduces the kLaneWarps
+// partials the same way, so all threads agree on (best, jb). Thread 0 writes row i to
+// the ring and to global memory. The parity double buffer keeps the step
+// to one barrier per row: a warp can write row i + 2's partials only
+// after the barrier of row i + 1, which every thread reaches after
+// reading row i's. Row i's f (and cnt/sq/sr) become visible in shared
+// memory only after row i + 1's barrier, so row i + 1 takes slot j = i
+// from the registers every thread holds (f_last, c_last, ...); older
+// slots, and the winner's statistics at jb < i - 1, come from the ring.
+//
+// What bounds it: the sequential row walk leaves one block per read (128
+// at the long-read shapes, about one per SM), and each row costs the
+// scoring of ceil(H / kLaneThreads) slots a thread from shared memory,
+// four warp reductions and one barrier, issued by every warp of the
+// block. 512 threads beat 256 and 1024 at the long-read shapes
+// (lane_block_ab.py times the three on one card; PERF.md has the table).
+constexpr int kLaneThreads = 512;
+constexpr int kLaneWarps = kLaneThreads / 32;
+constexpr int kLaneTile = kLaneThreads;  // rows per tile load, one a thread
+
+template <bool kAux>
+__global__ void __launch_bounds__(kLaneThreads, 1) chain_dp_lane_kernel(
+    const int* __restrict__ grp, const int* __restrict__ rpos,
+    const int* __restrict__ qpos, const int* __restrict__ span,
+    int* __restrict__ f, int* __restrict__ o1, int* __restrict__ o2,
+    int* __restrict__ o3, const float* __restrict__ log2tab, int tab_len,
+    int A, int H, int mdx, int mdy, int bw, float pen_gap, float pen_skip) {
+  extern __shared__ int ring[];
+  __shared__ int s_best[2][kLaneWarps];
+  __shared__ int s_jb[2][kLaneWarps];
+  __shared__ int s_last[kLaneWarps];
+  const int R = H + kLaneTile;
+  int* s_g = ring;
+  int* s_r = ring + R;
+  int* s_q = ring + 2 * R;
+  int* s_s = ring + 3 * R;
+  int* s_f = ring + 4 * R;
+  int* s_c = kAux ? ring + 5 * R : nullptr;
+  int* s_sq = kAux ? ring + 6 * R : nullptr;
+  int* s_sr = kAux ? ring + 7 * R : nullptr;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const size_t base = (size_t)blockIdx.x * A;
+  const int* g = grp + base;
+  const int* rp = rpos + base;
+  const int* qp = qpos + base;
+  const int* sp = span + base;
+  int* fo = f + base;
+  int* co = o1 + base;  // cnt (aux) or prev
+  int* qo = kAux ? o2 + base : nullptr;
+  int* ro = kAux ? o3 + base : nullptr;
+
+  // rows >= n are trailing padding
+  int last = -1;
+  for (int j = tid; j < A; j += kLaneThreads)
+    if (g[j] != -1) last = j;
+  for (int o = 16; o > 0; o >>= 1)
+    last = max(last, __shfl_xor_sync(kFull, last, o));
+  if (lane == 0) s_last[warp] = last;
+  __syncthreads();
+  last = s_last[0];
+  for (int w = 1; w < kLaneWarps; ++w) last = max(last, s_last[w]);
+  const int n = last + 1;
+
+  for (int i = n + tid; i < A; i += kLaneThreads) {
+    fo[i] = sp[i];
+    if (kAux) {
+      co[i] = 1;
+      qo[i] = qp[i];
+      ro[i] = rp[i];
+    } else {
+      co[i] = -1;
+    }
+  }
+
+  // the first tile's columns, one row a thread
+  int pg = 0, pr = 0, pq = 0, ps = 0;
+  if (tid < n) {
+    pg = g[tid];
+    pr = rp[tid];
+    pq = qp[tid];
+    ps = sp[tid];
+  }
+  int f_last = 0, c_last = 0, q_last = 0, r_last = 0;
+  int islot = 0;  // i mod R
+  for (int i = 0; i < n; ++i) {
+    if ((i & (kLaneTile - 1)) == 0) {
+      // rows [i, i + kLaneTile) into the ring; their slots held rows
+      // [i - H - kLaneTile, i - H), which no row from i on reads
+      if (i + tid < n) {
+        int slot = islot + tid;
+        if (slot >= R) slot -= R;
+        s_g[slot] = pg;
+        s_r[slot] = pr;
+        s_q[slot] = pq;
+        s_s[slot] = ps;
+      }
+      const int nr = i + kLaneTile + tid;
+      if (nr < n) {
+        pg = g[nr];
+        pr = rp[nr];
+        pq = qp[nr];
+        ps = sp[nr];
+      }
+      __syncthreads();
+    }
+    const int gi = s_g[islot];
+    const long long ri = s_r[islot];
+    const long long qi = s_q[islot];
+    const int si = s_s[islot];
+    int best = kNegInf;
+    int jb = -1;
+    const int j0 = max(0, i - H) + tid;
+    if (j0 < i) {
+      int slot = islot - (i - j0);  // i - j0 <= H < R: one wrap at most
+      if (slot < 0) slot += R;
+      for (int j = j0; j < i; j += kLaneThreads) {
+        // the slot's words, loaded together before any test
+        const int gj = s_g[slot], rj = s_r[slot], qj = s_q[slot];
+        const int sj = s_s[slot];
+        const int fj = j == i - 1 ? f_last : s_f[slot];
+        int sc;
+        if (gj == gi && comput_sc(ri, qi, rj, qj, sj, log2tab, tab_len, mdx,
+                                  mdy, bw, pen_gap, pen_skip, &sc)) {
+          sc += fj;
+          // j ascends per thread, so >= keeps this thread's largest tied j
+          if (sc >= best) {
+            best = sc;
+            jb = j;
+          }
+        }
+        slot += kLaneThreads;
+        if (slot >= R) slot -= R;
+      }
+    }
+    // max score, then the largest j holding it: a warp's, then the block's
+    const int wb = __reduce_max_sync(kFull, best);
+    jb = __reduce_max_sync(kFull, best == wb ? jb : -1);
+    best = wb;
+    const int par = i & 1;
+    if (lane == 0) {
+      s_best[par][warp] = best;
+      s_jb[par][warp] = jb;
+    }
+    __syncthreads();
+    {
+      const int pb = lane < kLaneWarps ? s_best[par][lane] : kNegInf;
+      const int pj = lane < kLaneWarps ? s_jb[par][lane] : -1;
+      best = __reduce_max_sync(kFull, pb);
+      jb = __reduce_max_sync(kFull, pb == best ? pj : -1);
+    }
+    const bool win = jb >= 0 && best > si;
+    const int fi = win ? best : si;
+    if (kAux) {
+      int ci = 1, qsi = (int)qi, rsi = (int)ri;
+      if (win && jb == i - 1) {
+        ci = c_last + 1;
+        qsi = q_last;
+        rsi = r_last;
+      } else if (win) {
+        int js = islot - (i - jb);
+        if (js < 0) js += R;
+        ci = s_c[js] + 1;
+        qsi = s_sq[js];
+        rsi = s_sr[js];
+      }
+      if (tid == 0) {
+        s_f[islot] = fi;
+        s_c[islot] = ci;
+        s_sq[islot] = qsi;
+        s_sr[islot] = rsi;
+        fo[i] = fi;
+        co[i] = ci;
+        qo[i] = qsi;
+        ro[i] = rsi;
+      }
+      c_last = ci;
+      q_last = qsi;
+      r_last = rsi;
+    } else if (tid == 0) {
+      s_f[islot] = fi;
+      fo[i] = fi;
+      co[i] = win ? jb : -1;
+    }
+    f_last = fi;
+    if (++islot == R) islot = 0;
+  }
+}
+
+// the lane kernel's dynamic shared memory: the ring's R = H + kLaneTile
+// slots of 8 (aux) or 5 words
+template <bool kAux>
+size_t lane_ring_bytes(int H) {
+  return (size_t)(H + kLaneTile) * (kAux ? 8 : 5) * sizeof(int);
+}
+
+template <bool kAux>
+int launch_lane(const void* grp, const void* rpos, const void* qpos,
+                const void* span, void* f, void* o1, void* o2, void* o3,
+                const void* log2tab, int tab_len, int B, int A, int H, int mdx,
+                int mdy, int bw, float pen_gap, float pen_skip, void* stream) {
+  if (B <= 0 || A <= 0) return (int)cudaSuccess;
+  const size_t smem = lane_ring_bytes<kAux>(H);
+  // a ring over the block's limit is refused here and raised by the caller
+  const cudaError_t e = cudaFuncSetAttribute(
+      chain_dp_lane_kernel<kAux>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  chain_dp_lane_kernel<kAux><<<B, kLaneThreads, smem, (cudaStream_t)stream>>>(
+      (const int*)grp, (const int*)rpos, (const int*)qpos, (const int*)span,
+      (int*)f, (int*)o1, (int*)o2, (int*)o3, (const float*)log2tab, tab_len,
+      A, H, mdx, mdy, bw, pen_gap, pen_skip);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Every entry point launches on `stream`, allocates nothing and does not
@@ -290,6 +535,31 @@ extern "C" int mm2t_chain_dp(
                               nullptr, nullptr, nullptr, log2tab, tab_len, B,
                               A, H, mdx, mdy, bw, pen_gap, pen_skip, 0,
                               stream);
+}
+
+// The block-per-read lane kernel: the same contracts as mm2t_chain_dp_aux
+// and mm2t_chain_dp, for the exact window; its ring of (H + 512) slots
+// must fit a block's shared memory (kernels/chain_dp.py picks it).
+extern "C" int mm2t_chain_dp_aux_lane(
+    const void* grp, const void* rpos, const void* qpos, const void* span,
+    void* f, void* cnt, void* sq, void* sr,
+    const void* log2tab, int tab_len,
+    int B, int A, int H, int mdx, int mdy, int bw,
+    float pen_gap, float pen_skip, void* stream) {
+  return launch_lane<true>(grp, rpos, qpos, span, f, cnt, sq, sr, log2tab,
+                           tab_len, B, A, H, mdx, mdy, bw, pen_gap, pen_skip,
+                           stream);
+}
+
+extern "C" int mm2t_chain_dp_lane(
+    const void* grp, const void* rpos, const void* qpos, const void* span,
+    void* f, void* prev,
+    const void* log2tab, int tab_len,
+    int B, int A, int H, int mdx, int mdy, int bw,
+    float pen_gap, float pen_skip, void* stream) {
+  return launch_lane<false>(grp, rpos, qpos, span, f, prev, nullptr, nullptr,
+                            log2tab, tab_len, B, A, H, mdx, mdy, bw, pen_gap,
+                            pen_skip, stream);
 }
 
 // The pruned instances. prev_scratch (aux only) and t_scratch are (B, A)

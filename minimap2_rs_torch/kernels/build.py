@@ -82,6 +82,7 @@ def library() -> ctypes.CDLL:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         for fn, n_out, prune in (
             (lib.mm2t_chain_dp_aux, 4, False), (lib.mm2t_chain_dp, 2, False),
+            (lib.mm2t_chain_dp_aux_lane, 4, False), (lib.mm2t_chain_dp_lane, 2, False),
             (lib.mm2t_chain_dp_aux_prune, 6, True), (lib.mm2t_chain_dp_prune, 3, True),
         ):
             fn.restype = ci

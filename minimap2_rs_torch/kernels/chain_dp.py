@@ -18,17 +18,18 @@ reference's max_chain_skip early break, which the JAX package runs in
 its lax.scan DP under MM2T_SKIP_PRUNE (ops/chain_ops.py:80-137); it has
 no Pallas counterpart.
 
-One template with a runtime window H = min(window, A) covers every
-shape. It is bound by per-step latency and global-memory window reads,
-not FLOPs (one warp per read walks the sequential DP; see the source's
-header). ptxas -v for sm_90a: 44 registers for the exact (f, prev)
-instance, 48 for the exact aux one, 32 and 40 for the pruned ones, no
-spills.
+Two designs, picked by shape (`lane_design`): at the lane shape class
+(A >= 1024) with an exact window whose shared-memory ring fits a block,
+the block-per-read kernel (mm2t_chain_dp_aux_lane, mm2t_chain_dp_lane:
+the window in shared memory, one barrier per row); everywhere else the
+warp-per-read template with a runtime window H = min(window, A), which
+reads the window from global memory. Both are bound by the sequential
+row walk's per-step latency, not FLOPs (see the source's headers).
 
 On CUDA tensors each wrapper launches its kernel or raises; on CPU
 tensors it runs the plain version in ops/chain_ops.py. Launches are
 counted per variant (a pruned launch under "<variant>_prune") and per
-the Pallas kernel's shape class.
+the Pallas kernel's shape class, whichever design runs it.
 """
 
 from __future__ import annotations
@@ -63,6 +64,29 @@ def shape_class(A: int, window: int) -> str:
     return "static" if window >= A else "dynamic"
 
 
+# the lane kernel's block size and tile (kLaneThreads = kLaneTile in
+# csrc/chain_dp.cu), and the dynamic shared memory its ring may take: a
+# block's 227 KB, less 1 KB for its static partials
+LANE_THREADS = 512
+LANE_SMEM_MAX = 227 * 1024 - 1024
+
+
+def lane_ring_bytes(H: int, aux: bool) -> int:
+    """Shared memory of the lane kernel's ring at window H: H + one tile
+    of slots, 8 words a slot for aux (grp, rpos, qpos, span, f, cnt, sq,
+    sr), 5 for (f, prev)."""
+    return (H + LANE_THREADS) * (8 if aux else 5) * 4
+
+
+def lane_design(A: int, window: int, aux: bool, max_chain_skip: int | None) -> bool:
+    """True when a (B, A) call takes the block-per-read lane kernel: the
+    lane shape class, the exact window (no max_chain_skip) and a ring
+    that fits a block's shared memory. A choice by shape, made before the
+    launch; the warp-per-read template takes every other call."""
+    return (max_chain_skip is None and shape_class(A, window) == "lane"
+            and lane_ring_bytes(min(window, A), aux) <= LANE_SMEM_MAX)
+
+
 def _check(name: str, t: torch.Tensor, shape, dtype, device):
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
@@ -74,11 +98,8 @@ def _check(name: str, t: torch.Tensor, shape, dtype, device):
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _run(variant: str, n_out: int, ref, grp, rpos, qpos, span,
-         scalars: ChainScalars, window: int, log2_tab: torch.Tensor,
-         max_chain_skip: int | None):
-    """Validate, then the plain version on the CPU or one kernel launch
-    on CUDA; returns n_out (B, A) int32 tensors."""
+def _validate(grp, rpos, qpos, span, scalars: ChainScalars, window: int,
+              log2_tab: torch.Tensor, max_chain_skip: int | None) -> torch.device:
     if grp.dim() != 2:
         raise ValueError(f"grp: expected (B, A), got shape {tuple(grp.shape)}")
     dev = grp.device
@@ -91,21 +112,24 @@ def _run(variant: str, n_out: int, ref, grp, rpos, qpos, span,
         raise ValueError("window must be >= 1")
     if max_chain_skip is not None and max_chain_skip < 0:
         raise ValueError("max_chain_skip must be >= 0")
-    if dev.type == "cpu":
-        return ref(grp, rpos, qpos, span, scalars, window, log2_tab,
-                   max_chain_skip=max_chain_skip)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
+    return dev
 
+
+def _launch(entry: str, n_out: int, grp, rpos, qpos, span, scalars: ChainScalars,
+            window: int, log2_tab: torch.Tensor, max_chain_skip: int | None):
+    """One launch of the library's `entry` on validated CUDA inputs;
+    returns its n_out (B, A) int32 outputs. Raises if the launch is
+    refused."""
     from .build import library
 
-    prune = max_chain_skip is not None
-    if prune:
-        variant += "_prune"
-    fn = getattr(library(), f"mm2t_{variant}")
+    fn = getattr(library(), entry)
+    dev = grp.device
     B, A = grp.shape
     new = lambda: torch.empty((B, A), dtype=torch.int32, device=dev)
     outs = [new() for _ in range(n_out)]
+    prune = max_chain_skip is not None
     # the pruned instances' scratch: prev (aux only) and the marks t
     scratch = [new() for _ in range(1 + (n_out == 4))] if prune else []
     tail = (max_chain_skip,) if prune else ()
@@ -121,14 +145,48 @@ def _run(variant: str, n_out: int, ref, grp, rpos, qpos, span,
             *tail, stream,
         )
     if err != 0:
-        raise RuntimeError(f"mm2t_{variant} launch failed: cudaError {err}")
+        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
+    return tuple(outs)
+
+
+def _run(variant: str, n_out: int, ref, grp, rpos, qpos, span,
+         scalars: ChainScalars, window: int, log2_tab: torch.Tensor,
+         max_chain_skip: int | None):
+    """Validate, then the plain version on the CPU or one kernel launch
+    on CUDA; returns n_out (B, A) int32 tensors."""
+    dev = _validate(grp, rpos, qpos, span, scalars, window, log2_tab, max_chain_skip)
+    if dev.type == "cpu":
+        return ref(grp, rpos, qpos, span, scalars, window, log2_tab,
+                   max_chain_skip=max_chain_skip)
+    A = grp.shape[1]
+    if max_chain_skip is not None:
+        variant += "_prune"
+    entry = f"mm2t_{variant}"
+    if lane_design(A, window, n_out == 4, max_chain_skip):
+        entry += "_lane"
+    outs = _launch(entry, n_out, grp, rpos, qpos, span, scalars, window, log2_tab,
+                   max_chain_skip)
     key = f"{variant}/{shape_class(A, window)}"
     launches[key] += 1
     if captured is not None:
         captured.setdefault((key, scalars.bw, A), (
             tuple(t.clone() for t in (grp, rpos, qpos, span)), scalars, window,
             max_chain_skip))
-    return tuple(outs)
+    return outs
+
+
+def template_batch(aux: bool, grp, rpos, qpos, span, scalars: ChainScalars,
+                   window: int, log2_tab: torch.Tensor):
+    """The exact-window DP through the warp-per-read template at any
+    shape, on CUDA tensors: the design the lane shapes ran before the
+    lane kernel, kept callable so a run can time both on the same
+    inputs. Not a path of the mapper, and not counted."""
+    dev = _validate(grp, rpos, qpos, span, scalars, window, log2_tab, None)
+    if dev.type != "cuda":
+        raise ValueError("template_batch launches a kernel: CUDA tensors only")
+    entry = "mm2t_chain_dp_aux" if aux else "mm2t_chain_dp"
+    return _launch(entry, 4 if aux else 2, grp, rpos, qpos, span, scalars, window,
+                   log2_tab, None)
 
 
 def chain_dp_aux_batch(

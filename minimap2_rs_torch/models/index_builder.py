@@ -1,19 +1,19 @@
 """Index construction for the port (counterpart of
-minimap2_rs_tpu/models/index_builder.py), with no jax: the reference
-package's threaded native C++ build, and the chunked device build
-(ops/index_build.py) on an explicit device. Both give the same flat
-sorted-array OracleIndex."""
+minimap2_rs_tpu/models/index_builder.py), with no jax: the port's
+threaded native C++ build (runtime/host.py), and the chunked device
+build (ops/index_build.py) on an explicit device. Both give the same
+flat sorted-array OracleIndex."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from minimap2_rs_tpu.config import IndexParams
-from minimap2_rs_tpu.oracle.index import OracleIndex, SeqMeta, _flatten, build_index
-from minimap2_rs_tpu.utils.packing import nt4_encode, seq4_pack
-
+from ..config import IndexParams
 from ..device import resolve_device
+from ..oracle.index import OracleIndex, SeqMeta, _flatten, build_index
+from ..runtime.host import native_build_index
+from ..utils.packing import nt4_encode, seq4_pack
 
 
 def build_index_native(
@@ -23,8 +23,6 @@ def build_index_native(
 ) -> OracleIndex:
     """Threaded C++ exact-scan build (runtime.host.native_build_index);
     the host NumPy build when the native library is absent."""
-    from minimap2_rs_tpu.runtime.host import native_build_index
-
     raw = b"".join(bytes(s) for _n, s in records)
     seq_off = np.zeros(len(records) + 1, dtype=np.int64)
     np.cumsum([len(s) for _n, s in records], out=seq_off[1:])

@@ -39,12 +39,17 @@ import time
 import numpy as np
 import torch
 
-from minimap2_rs_tpu.config import ChainParams, MapParams
-from minimap2_rs_tpu.oracle import lchain as olchain
-from minimap2_rs_tpu.oracle import pipeline as opipeline
-from minimap2_rs_tpu.oracle.index import OracleIndex
-from minimap2_rs_tpu.oracle.paf import write_paf_many_with_scores
-from minimap2_rs_tpu.runtime.host import (
+from ..config import ChainParams, MapParams
+from ..device import resolve_device
+from ..kernels.chain_dp import chain_dp_batch
+from ..ops.chain_ops import ChainScalars, chain_scalars_from_params, log2_table
+from ..ops.finalize_ops import FIELDS, WIRE_WORDS, as_i32, unpack_fields_wire
+from ..ops.index_ops import DeviceIndex
+from ..oracle import lchain as olchain
+from ..oracle import pipeline as opipeline
+from ..oracle.index import OracleIndex
+from ..oracle.paf import write_paf_many_with_scores
+from ..runtime.host import (
     native_available,
     native_backtrack,
     native_encode_pack2,
@@ -52,13 +57,7 @@ from minimap2_rs_tpu.runtime.host import (
     native_format_lite,
     native_postprocess,
 )
-from minimap2_rs_tpu.utils.packing import nt4_encode
-
-from ..device import resolve_device
-from ..kernels.chain_dp import chain_dp_batch
-from ..ops.chain_ops import ChainScalars, chain_scalars_from_params, log2_table
-from ..ops.finalize_ops import FIELDS, WIRE_WORDS, as_i32, unpack_fields_wire
-from ..ops.index_ops import DeviceIndex
+from ..utils.packing import nt4_encode
 from .stages import (
     chain_finalize_lite,
     chain_inputs,

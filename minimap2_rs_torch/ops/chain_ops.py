@@ -26,7 +26,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from minimap2_rs_tpu.oracle.lchain import mg_log2
+from ..oracle.lchain import mg_log2
 
 NEG_INF = -(2**30)
 

@@ -101,7 +101,8 @@ def build_sorted_pairs_device(
     is_hpc: bool = False,
     chunk: int = 1 << 18,
     batch_rows: int = 16,
-    device: str | torch.device = "cpu",
+    *,
+    device: str | torch.device,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Sketch all sequences on `device`, chunked; returns host uint64
     arrays (keys, rid_pos_strand) sorted by (key, value). The batches

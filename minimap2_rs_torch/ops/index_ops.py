@@ -70,7 +70,7 @@ class DeviceIndex:
     @staticmethod
     def from_host(keys: np.ndarray, starts: np.ndarray, counts: np.ndarray,
                   positions: np.ndarray, key_bits: int = 56,
-                  seq_lens=None, device="cpu") -> "DeviceIndex":
+                  seq_lens=None, *, device) -> "DeviceIndex":
         """Tables from the host uint64 arrays (JAX DeviceIndex.from_host,
         index_ops.py:133-204), moved to `device`. seq_lens enables the
         packed position plane (total length < 2^31, <= 64 sequences —

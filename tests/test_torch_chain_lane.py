@@ -1,0 +1,125 @@
+"""The chain-DP wrapper's choice between its two designs (the
+block-per-read lane kernel and the warp-per-read template), made in
+Python by shape before any launch, and the tie rule the lane kernel's
+block reduction must keep: the plain versions, like the JAX scan DP,
+take the largest j among equal scores."""
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from minimap2_rs_tpu.config import ChainParams as JChainParams  # noqa: E402
+from minimap2_rs_tpu.ops import chain_ops as jchain  # noqa: E402
+from minimap2_rs_torch.config import ChainParams  # noqa: E402
+from minimap2_rs_torch.kernels import chain_dp as kchain  # noqa: E402
+from minimap2_rs_torch.ops.chain_ops import (  # noqa: E402
+    chain_dp_aux_batch_ref,
+    chain_dp_batch_ref,
+    chain_scalars_from_params,
+    log2_table,
+)
+
+torch.set_num_threads(2)
+
+# (A, window, aux, max_chain_skip) -> the lane kernel?
+DISPATCH = {
+    "lite long reads (aux, A=4480, H=1024)": (4480, 1024, True, None, True),
+    "general long reads (A=4480, H=4480)": (4480, 5000, False, None, True),
+    "largest general shape (A=11904, H=5000)": (11904, 5000, False, None, True),
+    "aux at A=11904, H=5000": (11904, 5000, True, None, True),
+    "lane, window below A": (1024, 128, True, None, True),
+    "aux ring at the limit (H=6720)": (8192, 6720, True, None, True),
+    "static (A=256)": (256, 256, True, None, False),
+    "static, window past A": (256, 5000, False, None, False),
+    "dynamic (A=256, H=64)": (256, 64, False, None, False),
+    "pruned lane": (4480, 5000, False, 25, False),
+    "pruned lane aux": (4480, 1024, True, 25, False),
+    "aux ring over 227 KB (H=6721)": (8192, 6721, True, None, False),
+    "(f, prev) ring over 227 KB (H=12000)": (12288, 12000, False, None, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DISPATCH))
+def test_lane_design_by_shape(case):
+    A, window, aux, skip, want = DISPATCH[case]
+    assert kchain.lane_design(A, window, aux, skip) is want
+    ring = kchain.lane_ring_bytes(min(window, A), aux)
+    if skip is None and A >= 1024:
+        assert (ring <= kchain.LANE_SMEM_MAX) is want
+
+
+@pytest.mark.parametrize("case", sorted(DISPATCH))
+def test_wrapper_launches_the_chosen_entry(case, monkeypatch):
+    """On a CUDA device the wrapper launches the lane entry point exactly
+    when lane_design says so, else the template's (or its pruned
+    instance), and counts the launch under the Pallas shape class either
+    way. The launch itself is replaced: this machine has no card."""
+    A, window, aux, skip, want = DISPATCH[case]
+    entries = []
+
+    def fake_launch(entry, n_out, grp, *_a, **_k):
+        entries.append(entry)
+        return tuple(torch.zeros_like(grp) for _ in range(n_out))
+
+    monkeypatch.setattr(kchain, "_validate", lambda *a, **k: torch.device("cuda"))
+    monkeypatch.setattr(kchain, "_launch", fake_launch)
+    monkeypatch.setattr(kchain, "captured", None)
+    monkeypatch.setattr(kchain, "launches", dict.fromkeys(kchain.launches, 0))
+    cols = [torch.zeros((1, A), dtype=torch.int32) for _ in range(4)]
+    wrapper = kchain.chain_dp_aux_batch if aux else kchain.chain_dp_batch
+    outs = wrapper(*cols, chain_scalars_from_params(ChainParams()), window,
+                   log2_table(501), skip)
+    variant = ("chain_dp_aux" if aux else "chain_dp") + ("_prune" if skip is not None else "")
+    assert entries == [f"mm2t_{variant}" + ("_lane" if want else "")]
+    assert len(outs) == (4 if aux else 2)
+    key = f"{variant}/{kchain.shape_class(A, window)}"
+    assert {k: v for k, v in kchain.launches.items() if v} == {key: 1}
+
+
+def tie_read():
+    """Four anchors on one strand where anchor 3 scores 43 from both
+    anchor 1 (f = 30, a chain of 2 from anchor 0; 15 - 2 from its span)
+    and anchor 2 (f = 30 on its own, as its diagonal is out of anchor 0's
+    band; 15 - 2 from the gap dg = 15), at bw = 60 with no linear
+    penalties. The largest j, 2, must win: prev 2, cnt 2 and the chain
+    start of anchor 2, where j = 1 would give cnt 3 and (0, 0)."""
+    grp = np.zeros((1, 4), np.int32)
+    rpos = np.array([[0, 100, 250, 265]], np.int32)
+    qpos = np.array([[0, 100, 150, 215]], np.int32)
+    span = np.array([[15, 15, 30, 15]], np.int32)
+    return grp, rpos, qpos, span
+
+
+TIE_KW = dict(bw=60, chn_pen_gap=0.0, chn_pen_skip=0.0)
+
+
+@pytest.mark.parametrize("pad", [0, 1021])
+def test_plain_versions_break_ties_to_the_largest_j(pad):
+    """The tie on its own and at a lane shape (A = 1025, padding after)."""
+    arrs = tie_read()
+    if pad:
+        fill = dict(zip(range(4), (-1, -1, -1, 255)))
+        arrs = tuple(np.concatenate([a, np.full((1, pad), fill[c], np.int32)], axis=1)
+                     for c, a in enumerate(arrs))
+    cols = tuple(torch.from_numpy(a) for a in arrs)
+    scal = chain_scalars_from_params(ChainParams.defaults_for_k(15, **TIE_KW))
+    tab = log2_table(61)
+    A = arrs[0].shape[1]
+    f, prev = chain_dp_batch_ref(*cols, scal, A, tab)
+    f2, cnt, sq, sr = chain_dp_aux_batch_ref(*cols, scal, A, tab)
+    assert f[0, :4].tolist() == f2[0, :4].tolist() == [15, 30, 30, 43]
+    assert prev[0, :4].tolist() == [-1, 0, -1, 2]
+    assert cnt[0, :4].tolist() == [1, 2, 1, 2]
+    assert (sq[0, 3].item(), sr[0, 3].item()) == (150, 250)
+    # the JAX package's scan DP, the contract, agrees
+    jscal = jchain.chain_scalars_from_params(JChainParams.defaults_for_k(15, **TIE_KW))
+    jargs = (jnp.asarray(arrs[0].view(np.uint32)),) + tuple(jnp.asarray(a) for a in arrs[1:])
+    jf, jprev = jchain.chain_dp_batch(*jargs, jscal, A)
+    np.testing.assert_array_equal(np.asarray(jprev), prev.numpy())
+    np.testing.assert_array_equal(np.asarray(jf), f.numpy())
+    jaux = jchain.chain_dp_aux_batch(*jargs, jscal, A)
+    for g, w in zip((f2, cnt, sq, sr), jaux):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))

@@ -1,6 +1,8 @@
-"""The port never imports jax, and its kernel wrappers validate what they
-are given before any launch."""
+"""The port never imports jax nor anything of the JAX package
+(minimap2_rs_tpu), and its kernel wrappers validate what they are given
+before any launch."""
 
+import ast
 import subprocess
 import sys
 from pathlib import Path
@@ -25,18 +27,43 @@ def test_port_imports_no_jax():
     )
     mods = [m[: -len(".__init__")] if m.endswith(".__init__") else m for m in mods]
     for m in ("models.mapper", "models.index_builder", "cli", "ops.sketch_scan",
-              "ops.index_build", "ops.extend_ops", "kernels.window_scan"):
+              "ops.index_build", "ops.extend_ops", "kernels.window_scan", "config",
+              "io.fasta", "oracle.pipeline", "runtime.host", "utils.profiling"):
         assert f"minimap2_rs_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax'\n"
+        "             or m.startswith(('jax.', 'jaxlib', 'minimap2_rs_tpu')))\n"
         "assert not bad, bad\n"
         "assert 'triton' not in sys.modules\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=300)
     assert res.returncode == 0, res.stderr
+
+
+def _port_sources():
+    return sorted((ROOT / "minimap2_rs_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported(tree: ast.AST):
+    """Every module name an import statement of `tree` names, at any depth
+    (relative imports as written, without their package)."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_source_never_imports_jax_package(path):
+    """No import statement of the port or of chip_smoke.py, at module level
+    or inside a function, names minimap2_rs_tpu or jax."""
+    names = list(_imported(ast.parse(path.read_text(), str(path))))
+    bad = [n for n in names if n.split(".")[0] in ("minimap2_rs_tpu", "jax", "jaxlib")]
+    assert not bad, bad
 
 
 SCAL = ChainScalars(max_dist_x=5000, max_dist_y=5000, bw=500,

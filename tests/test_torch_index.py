@@ -31,7 +31,7 @@ def both(request):
     idx = build_index_native([("chrT", g)], IndexParams())
     args = (idx.keys, idx.starts, idx.counts, idx.positions)
     kw = dict(key_bits=2 * idx.k, seq_lens=[s.length for s in idx.seq])
-    return glen, idx, tidx.DeviceIndex.from_host(*args, **kw), jidx.DeviceIndex.from_host(*args, **kw)
+    return glen, idx, tidx.DeviceIndex.from_host(*args, **kw, device="cpu"), jidx.DeviceIndex.from_host(*args, **kw)
 
 
 def _u32(t: torch.Tensor) -> np.ndarray:
@@ -79,7 +79,7 @@ def test_unported_layouts_raise(both):
     kv[: idx.keys.shape[0], 2] = idx.starts.astype(np.uint32)
     kv[: idx.keys.shape[0], 3] = idx.counts.astype(np.uint32)
     flat = tidx.DeviceIndex.from_host(idx.keys, idx.starts, idx.counts, idx.positions,
-                                      key_bits=2 * idx.k)
+                                      key_bits=2 * idx.k, device="cpu")
     fb = tidx.DeviceIndex(**{**flat.__dict__, "kv": tidx._t32(kv, "cpu"),
                              "prefix": torch.from_numpy(prefix), "prefix_shift": shift,
                              "bucket_slots": S, "dm_slots": 0})

@@ -71,7 +71,8 @@ def test_chunk_overflow_raises(monkeypatch):
     orig = mod.sketch_chunk_flat
     monkeypatch.setattr(mod, "sketch_chunk_flat", tiny)
     with pytest.raises(RuntimeError, match="overflow"):
-        tib.build_sorted_pairs_device([(0, np.zeros(5000, np.uint8))], 10, 15, chunk=4096)
+        tib.build_sorted_pairs_device([(0, np.zeros(5000, np.uint8))], 10, 15, chunk=4096,
+                                      device="cpu")
 
 
 def test_plan_chunks_equals_jax():
@@ -93,7 +94,7 @@ def test_prefix_fallback_lookup_equals_jax(k, monkeypatch):
         monkeypatch.setattr(mod, "plan_direct_layout",
                             lambda *a, _plan=plan, **kw: _plan(*a, byte_cap=1))
     args = (idx.keys, idx.starts, idx.counts, idx.positions)
-    t = tidx.DeviceIndex.from_host(*args, key_bits=2 * k)
+    t = tidx.DeviceIndex.from_host(*args, key_bits=2 * k, device="cpu")
     j = jidx.DeviceIndex.from_host(*args, key_bits=2 * k)
     assert t.dm_slots == 0 and j.dm_slots == 0
     kv, prefix, _shift, S = tidx.plan_prefix_layout(idx.keys, 2 * k)

@@ -41,7 +41,7 @@ def setup(request):
         codes[i, : len(s)] = nt4_encode(s)
     lengths = np.array([len(s) for s in reads], np.int32)
     mid_occ = max(idx.calc_mid_occ(MP.frac_top_repetitive), MP.mid_occ_floor)
-    return (idx, tidx.DeviceIndex.from_host(*args, **kw),
+    return (idx, tidx.DeviceIndex.from_host(*args, **kw, device="cpu"),
             jidx.DeviceIndex.from_host(*args, **kw), codes, lengths, mid_occ)
 
 
