@@ -3,8 +3,9 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from minimap2_rs_torch/csrc (the chain
-DP's two variants with their pruned instances, and the window scan; one
-nvcc per source, in parallel) and maps through the port's
+DP's two variants in their short-read, lane and template designs with
+their pruned instances, and the window scan; one nvcc per source, in
+parallel) and maps through the port's
 Mapper.map_reads_paf:
 
   * lite path (default ChainParams, k=15): a 5 Mbp random genome
@@ -43,17 +44,25 @@ Afterwards each kernel is held bit for bit against its plain PyTorch
 version on those inputs (the window scan's long shape on 8 rows), and
 the dynamic-window shape, which no mapping path launches, on the
 headline's inputs at window 128. A synthetic phase holds both lane
-kernels against their plain versions on the edge cases: no valid
-anchor, n < H, A not a multiple of the block, forced score ties, and
-the largest general shape (A = 11,904, H = 5000).
+kernels against their plain versions on the edge cases (no valid
+anchor, n < H, A not a multiple of the block, forced score ties, the
+largest general shape: A = 11,904, H = 5000), and both short-read
+kernels on theirs (an empty read, n < 32 and n = A; window 64; A = 384
+and 768, full and at window 128; forced ties; positions near 2^31 - 1;
+pen_skip != 0; bw 20000 with winners past the staged penalty table).
 
 Every kernel row gets its bound from the inputs it was timed on: the
 candidate pairs the DP scores (the window scan: the positions), times
 the operations per pair counted from the kernel source, over the card's
 float32 rate, against the bytes each input read once and each output
-written once over its memory rate; the larger names what bounds it. The
-two lane rows also time the previous design, the warp-per-read
-template, on the same inputs (prev_design_ms).
+written once over its memory rate; the larger names what bounds it.
+A kernel's time is the median of 5 CUDA-event timings of 10
+back-to-back launches, divided by 10, so it holds no host cost of a call.
+Every chain row names its design and gives `rows`, the longest read's
+valid rows in the timed input, and `us_per_row` (ms x 1000 / rows, the
+row walk's step latency); the short-read and lane rows also time the
+previous design, the warp-per-read template, on the same inputs
+(prev_design_ms).
 
 Exits non-zero, printing no result, when any phase fails or CUDA is
 unavailable.
@@ -90,9 +99,12 @@ def _median(xs):
     return sorted(xs)[len(xs) // 2]
 
 
-def _time_ms(fn, reps: int = 5, warm: bool = True) -> float:
-    """Median of `reps` CUDA-event timings of fn() (after one warm-up
-    unless the caller has just run it)."""
+def _time_ms(fn, reps: int = 5, warm: bool = True, inner: int = 1) -> float:
+    """Median of `reps` CUDA-event timings of `inner` back-to-back calls
+    of fn(), divided by `inner` (after one warm-up unless the caller has
+    just run it). With inner > 1 the card queues each launch while the
+    previous one runs, so a kernel's time no longer holds the host's cost
+    of a call."""
     import torch
 
     if warm:
@@ -102,11 +114,16 @@ def _time_ms(fn, reps: int = 5, warm: bool = True) -> float:
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
         t0.record()
-        fn()
+        for _ in range(inner):
+            fn()
         t1.record()
         t1.synchronize()
-        times.append(t0.elapsed_time(t1))
+        times.append(t0.elapsed_time(t1) / inner)
     return _median(times)
+
+
+# back-to-back launches a kernel timing covers (_time_ms)
+KERNEL_INNER = 10
 
 
 # The card's peaks (H100 SXM data sheet, dense, at 700 W): float32 outside
@@ -137,6 +154,15 @@ def _bound(ops: int, nbytes: int):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def _valid_rows(grp):
+    """(B,) int64: n_b, one past read b's last valid anchor (grp != -1),
+    the rows the kernels walk."""
+    import torch
+
+    pos = torch.arange(1, grp.shape[1] + 1, device=grp.device, dtype=torch.int64)
+    return torch.where(grp != -1, pos, 0).amax(dim=1)
+
+
 def _chain_bound(args, window: int, n_out: int, tab_len: int):
     """(bound ms, bound_by, pairs) of one chain-DP call: the pairs
     sum_b sum_{i < n_b} min(i, H), with n_b one past read b's last valid
@@ -147,8 +173,7 @@ def _chain_bound(args, window: int, n_out: int, tab_len: int):
     grp = args[0]
     B, A = grp.shape
     H = min(window, A)
-    pos = torch.arange(1, A + 1, device=grp.device, dtype=torch.int64)
-    n = torch.where(grp != -1, pos, 0).amax(dim=1)
+    n = _valid_rows(grp)
     pairs = int(torch.where(n <= H + 1, n * (n - 1) // 2,
                             H * (H + 1) // 2 + (n - 1 - H) * H).sum())
     nbytes = (4 + n_out) * B * A * 4 + tab_len * 4
@@ -204,7 +229,7 @@ def _kernel_vs_plain(entries, tab, aux: bool, window=None, plain_reps: int = 5):
     args, scal, win, skip = max((e for e in entries if e[1].bw == bw0),
                                 key=lambda e: e[0][0].numel())
     win = window or win
-    ms = _time_ms(lambda: fn(*args, scal, win, tab, skip))
+    ms = _time_ms(lambda: fn(*args, scal, win, tab, skip), inner=KERNEL_INNER)
     plain_ms = _time_ms(lambda: ref(*args, scal, win, tab, max_chain_skip=skip),
                         reps=plain_reps)
     return err, ms, plain_ms, (args, scal, win, skip)
@@ -230,7 +255,7 @@ def _scan_vs_plain(entries, max_rows=None):
             bad = (got != want).nonzero()[:5].tolist()
             raise AssertionError(f"window_scan != plain (L={args[0].shape[1]}) at {bad}")
     args, w, k = max(cut, key=lambda e: e[0][0].numel())
-    ms = _time_ms(lambda: window_scan(*args[:4], w, k, args[4]))
+    ms = _time_ms(lambda: window_scan(*args[:4], w, k, args[4]), inner=KERNEL_INNER)
     # the comparison above has just run the plain loop on these inputs
     plain_ms = _time_ms(lambda: _window_scan_ref(*args[:4], w, k, args[4]), reps=1,
                         warm=False)
@@ -283,82 +308,128 @@ def _lane_share(tag, mapper, reads):
           f"share {lane_ms / 1e3 / dt:.4f}")
 
 
-def _synthetic_lane_phase(tab_default):
-    """Both lane kernels against their plain versions on the edge cases
-    no mapping phase guarantees; each must be torch.equal and must take
-    the lane design (lane_design)."""
+def _synthetic_chains(rng, B, A, n_of, r_off=0, q_off=0, step=40, jitter=3):
+    """Per read n_of(b) anchors sorted like the mapper's (colinear runs
+    on two strands from positions r_off and q_off, steps below `step`
+    with query jitter up to `jitter`, 5% exact duplicates), padding
+    after."""
     import numpy as np
-    import torch
+
+    cols = np.stack([np.full((B, A), -1, np.int64), np.full((B, A), -1, np.int64),
+                     np.full((B, A), -1, np.int64), np.full((B, A), 255, np.int64)])
+    for b in range(B):
+        n = n_of(b)
+        g, r, q = [], [], []
+        while len(g) < n:
+            m = int(rng.integers(5, 60))
+            strand = int(rng.integers(0, 2)) << 31
+            r0 = r_off + int(rng.integers(0, 200_000))
+            q0 = q_off + int(rng.integers(0, 20_000))
+            steps = rng.integers(1, step, size=m)
+            g += [strand] * m
+            r += list(r0 + np.cumsum(steps))
+            jit = rng.integers(-jitter, jitter + 1, size=m)
+            q += list(q0 + np.cumsum(np.maximum(steps + jit, 1)))
+        g, r, q = np.array(g[:n]), np.array(r[:n]), np.array(q[:n])
+        dup = rng.random(n) < 0.05
+        g, r, q = np.r_[g, g[dup]][:n], np.r_[r, r[dup]][:n], np.r_[q, q[dup]][:n]
+        o = np.lexsort((q, r, g))
+        cols[0, b, :n], cols[1, b, :n], cols[2, b, :n] = g[o], r[o], q[o]
+        cols[3, b, :n] = 15
+    return cols
+
+
+def _synthetic_ties(B, A):
+    """Blocks of four anchors, one group each, where the fourth scores 43
+    from the second and the third alike (bw 60, no linear penalties): the
+    larger j must win."""
+    import numpy as np
+
+    cols = np.stack([np.full((B, A), -1, np.int64), np.full((B, A), -1, np.int64),
+                     np.full((B, A), -1, np.int64), np.full((B, A), 255, np.int64)])
+    nb = A // 4
+    blk = np.arange(nb)
+    for b in range(B):
+        cols[0, b, :4 * nb] = np.repeat(blk, 4)
+        cols[1, b, :4 * nb] = np.tile([0, 100, 250, 265], nb) + 1000 * np.repeat(blk, 4)
+        cols[2, b, :4 * nb] = np.tile([0, 100, 150, 215], nb)
+        cols[3, b, :4 * nb] = np.tile([15, 15, 30, 15], nb)
+    return cols
+
+
+def _synthetic_cases():
+    """{design: [(name, cols, scalars, lite window, general window)]}: the
+    edge cases no mapping phase guarantees, for the lane and the
+    short-read kernels."""
+    import numpy as np
 
     from minimap2_rs_torch.config import ChainParams
-    from minimap2_rs_torch.kernels import chain_dp as kchain
     from minimap2_rs_torch.ops import chain_ops
-
-    dev = torch.device("cuda")
-    rng = np.random.default_rng(59)
-
-    def chains(B, A, n_of):
-        """Per read n_of(b) anchors sorted like the mapper's (colinear
-        runs with jitter on two strands, noise, 5% exact duplicates),
-        padding after."""
-        cols = np.stack([np.full((B, A), -1, np.int64), np.full((B, A), -1, np.int64),
-                         np.full((B, A), -1, np.int64), np.full((B, A), 255, np.int64)])
-        for b in range(B):
-            n = n_of(b)
-            g, r, q = [], [], []
-            while len(g) < n:
-                m = int(rng.integers(5, 60))
-                strand = int(rng.integers(0, 2)) << 31
-                r0, q0 = int(rng.integers(0, 200_000)), int(rng.integers(0, 20_000))
-                steps = rng.integers(1, 40, size=m)
-                g += [strand] * m
-                r += list(r0 + np.cumsum(steps))
-                q += list(q0 + np.cumsum(np.maximum(steps + rng.integers(-3, 4, size=m), 1)))
-            g, r, q = np.array(g[:n]), np.array(r[:n]), np.array(q[:n])
-            dup = rng.random(n) < 0.05
-            g, r, q = np.r_[g, g[dup]][:n], np.r_[r, r[dup]][:n], np.r_[q, q[dup]][:n]
-            o = np.lexsort((q, r, g))
-            cols[0, b, :n], cols[1, b, :n], cols[2, b, :n] = g[o], r[o], q[o]
-            cols[3, b, :n] = 15
-        return cols
-
-    def ties(B, A):
-        """Blocks of four anchors, one group each, where the fourth scores
-        43 from the second and the third alike (bw 60, no linear
-        penalties): the larger j must win."""
-        cols = np.stack([np.full((B, A), -1, np.int64), np.full((B, A), -1, np.int64),
-                         np.full((B, A), -1, np.int64), np.full((B, A), 255, np.int64)])
-        nb = A // 4
-        blk = np.arange(nb)
-        for b in range(B):
-            cols[0, b, :4 * nb] = np.repeat(blk, 4)
-            cols[1, b, :4 * nb] = np.tile([0, 100, 250, 265], nb) + 1000 * np.repeat(blk, 4)
-            cols[2, b, :4 * nb] = np.tile([0, 100, 150, 215], nb)
-            cols[3, b, :4 * nb] = np.tile([15, 15, 30, 15], nb)
-        return cols
 
     scal = chain_ops.chain_scalars_from_params(ChainParams.defaults_for_k(15))
     tie_scal = chain_ops.chain_scalars_from_params(
         ChainParams.defaults_for_k(15, bw=60, chn_pen_gap=0.0, chn_pen_skip=0.0))
-    cases = [
-        # (name, cols, scalars, lite window, general window)
+    # the short-read kernel's other instances: pen_skip != 0, and a band
+    # past its staged table whose winners have large dd (no gap penalty)
+    skip_scal = chain_ops.chain_scalars_from_params(
+        ChainParams.defaults_for_k(15, chn_pen_skip=0.2))
+    wide_scal = chain_ops.chain_scalars_from_params(
+        ChainParams.defaults_for_k(15, bw=20000, chn_pen_gap=0.0, chn_pen_skip=0.001))
+    rng = np.random.default_rng(59)
+    chains = lambda *a, **k: _synthetic_chains(rng, *a, **k)
+    lane = [
         ("n = 0", chains(4, 1100, lambda b: 0), scal, 1024, 5000),
         ("n < H", chains(8, 4480, lambda b: int(rng.integers(1, 1000))), scal, 1024, 4480),
         ("A = 2077, not a multiple of 256",
          chains(8, 2077, lambda b: 2077 if b % 2 else int(rng.integers(1000, 2077))),
          scal, 1024, 5000),
-        ("forced ties (A = 1100)", ties(4, 1100), tie_scal, 1024, 5000),
+        ("forced ties (A = 1100)", _synthetic_ties(4, 1100), tie_scal, 1024, 5000),
         ("largest general shape (A = 11904, H = 5000)",
          chains(4, 11904, lambda b: 11904 - 700 * b), scal, 5000, 5000),
     ]
+    rng = np.random.default_rng(61)
+    ns = [0, 20, 256, 255, 100, 31, 200, 1]  # an empty read, n < 32, n = A
+    top = 2**31 - 1
+    short = [
+        ("n = 0, n < 32, n = A (A = 256)", chains(8, 256, lambda b: ns[b]), scal, 256, 5000),
+        ("window 64 (A = 256)", chains(8, 256, lambda b: int(rng.integers(1, 257))), scal,
+         64, 64),
+        ("A = 384", chains(8, 384, lambda b: 384 - 40 * b), scal, 384, 5000),
+        ("A = 768, the 4x tier", chains(8, 768, lambda b: 768 - 90 * b), scal, 768, 5000),
+        ("A = 768, window 128", chains(8, 768, lambda b: 768 - 90 * b), scal, 128, 128),
+        ("forced ties (A = 256)", _synthetic_ties(4, 256), tie_scal, 256, 5000),
+        ("positions near 2^31 - 1 (A = 256)",
+         chains(8, 256, lambda b: 256, r_off=top - 260_000, q_off=top - 30_000), scal,
+         256, 5000),
+        ("pen_skip != 0 (A = 256)", chains(8, 256, lambda b: 256 - 20 * b), skip_scal,
+         256, 5000),
+        ("bw 20000, dd past the staged table (A = 256)",
+         chains(8, 256, lambda b: 256 - 20 * b, step=3000, jitter=2000), wide_scal, 256,
+         5000),
+    ]
+    return {"lane": lane, "short": short}
+
+
+def _synthetic_phase(tab_default, want_design, cases):
+    """Both variants against their plain versions on `cases` (see
+    _synthetic_cases); each call must take `want_design` and be
+    torch.equal to the plain version."""
+    import numpy as np
+    import torch
+
+    from minimap2_rs_torch.kernels import chain_dp as kchain
+    from minimap2_rs_torch.ops import chain_ops
+
+    dev = torch.device("cuda")
     for name, cols, sc, win_lite, win_gen in cases:
         args = tuple(torch.from_numpy(c.astype(np.uint32).view(np.int32).copy()).to(dev)
                      for c in cols)
-        tab = tab_default if sc is scal else chain_ops.log2_table(sc.bw + 1).to(dev)
+        tab = (tab_default if tab_default.shape[0] > sc.bw
+               else chain_ops.log2_table(sc.bw + 1).to(dev))
         A = args[0].shape[1]
         for aux, win in ((True, win_lite), (False, win_gen)):
-            if not kchain.lane_design(A, win, aux, None):
-                raise AssertionError(f"synthetic {name}: not a lane-design shape")
+            if kchain.design(A, win, aux, None) != want_design:
+                raise AssertionError(f"synthetic {name}: not a {want_design}-design shape")
             fn = kchain.chain_dp_aux_batch if aux else kchain.chain_dp_batch
             ref = chain_ops.chain_dp_aux_batch_ref if aux else chain_ops.chain_dp_batch_ref
             got, want = fn(*args, sc, win, tab), ref(*args, sc, win, tab)
@@ -366,13 +437,14 @@ def _synthetic_lane_phase(tab_default):
             for g, w in zip(got, want):
                 if not torch.equal(g, w):
                     bad = (g != w).nonzero()[:5].tolist()
-                    raise AssertionError(f"synthetic {name} (aux={aux}): lane kernel != "
-                                         f"plain at {bad}")
+                    raise AssertionError(f"synthetic {name} (aux={aux}): {want_design} "
+                                         f"kernel != plain at {bad}")
             n_win = int((want[1] >= (2 if aux else 0)).sum())
-            ring = kchain.lane_ring_bytes(min(win, A), aux)
-            print(f"synthetic lane {'aux' if aux else '(f, prev)'} [{name}]: "
-                  f"(B, A) = {tuple(args[0].shape)}, H = {min(win, A)}, ring {ring} B: "
-                  f"equal to the plain version ({n_win} chained rows)")
+            smem = (kchain.lane_ring_bytes(min(win, A), aux) if want_design == "lane"
+                    else kchain.short_block_bytes(A, aux))
+            print(f"synthetic {want_design} {'aux' if aux else '(f, prev)'} [{name}]: "
+                  f"(B, A) = {tuple(args[0].shape)}, H = {min(win, A)}, shared memory "
+                  f"{smem} B: equal to the plain version ({n_win} chained rows)")
 
 
 def _parity(tag, idx, sample, lines, cp, mp):
@@ -817,12 +889,18 @@ def main() -> int:
         timed = tuple(args[0].shape)
         bound_ms, bound_by, pairs = _chain_bound(args, win, 4 if aux else 2, tab.shape[0])
         n_launch = total.get(held, 0)
-        extra = {}
-        if skip is None and kchain.lane_design(timed[1], win, aux, None):
+        design = kchain.design(timed[1], win, aux, skip)
+        n_rows = int(_valid_rows(args[0]).max())
+        extra = {"design": design, "rows": n_rows,
+                 "us_per_row": ms * 1e3 / n_rows if n_rows else None}
+        if design != "template":
             # the previous design on the same inputs, in the same call
             extra["prev_design_ms"] = _time_ms(
-                lambda: kchain.template_batch(aux, *args, scal, win, tab))
+                lambda: kchain.template_batch(aux, *args, scal, win, tab), inner=KERNEL_INNER)
+        if design == "lane":
             extra["ring_bytes"] = kchain.lane_ring_bytes(min(win, timed[1]), aux)
+        elif design == "short":
+            extra["smem_bytes"] = kchain.short_block_bytes(timed[1], aux)
         print(f"{name}: (B, A), bw, window = {shapes}, all equal; timed at "
               f"{timed}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by}; {pairs} pairs x {CHAIN_OPS_PER_PAIR} ops)"
@@ -862,10 +940,11 @@ def main() -> int:
             shape=cls, timed_at=timed, on_main_path=total.get(key, 0) > 0,
         ))
 
-    # ---- the lane kernels on synthetic edge cases ------------------------
+    # ---- the lane and short-read kernels on synthetic edge cases ---------
     t0 = time.perf_counter()
-    _synthetic_lane_phase(tab)
-    print(f"synthetic lane phase {time.perf_counter() - t0:.1f} s")
+    for want_design, cases in _synthetic_cases().items():
+        _synthetic_phase(tab, want_design, cases)
+    print(f"synthetic phase {time.perf_counter() - t0:.1f} s")
 
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")

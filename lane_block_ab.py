@@ -5,9 +5,10 @@
 Builds minimap2_rs_torch/csrc/chain_dp.cu three times, with
 kLaneThreads = 256, 512 and 1024 (one nvcc each, in parallel, into
 build/lane_ab/), then times the two lane entry points of each on the
-same inputs, in turns (256, 512, 1024, then 1024, 512, 256; CUDA events,
-median of 5 each), beside the warp-per-read template and the bound
-(chip_smoke._chain_bound). Inputs, made from a seed: B = 128 reads of
+same inputs, in turns (256, 512, 1024, then 1024, 512, 256; CUDA events
+around 10 back-to-back launches, median of 5 each), beside the
+warp-per-read template and the bound (chip_smoke._chain_bound).
+Inputs, made from a seed: B = 128 reads of
 A = 4480 anchor slots all valid; the same with every other read empty;
 B = 16 at A = 11,904. Each is run at H = 1024 and 5000 (aux) and 5000
 ((f, prev)), and every output must be torch.equal to the template's.
@@ -27,49 +28,71 @@ import chip_smoke as cs
 BLOCKS = (256, 512, 1024)
 
 
-def _build(out: Path):
-    """One library per block size; returns {T: ctypes.CDLL}."""
+def with_constants(src: str, **consts) -> str:
+    """chain_dp.cu's source with each `constexpr int <name> = <value>;`
+    of `consts` set (each must appear once)."""
+    for name, value in consts.items():
+        src, n = re.subn(rf"constexpr int {name} = \d+;", f"constexpr int {name} = {value};",
+                         src)
+        if n != 1:
+            raise RuntimeError(f"chain_dp.cu: {name} not found once")
+    return src
+
+
+def build_variants(out: Path, sources: dict, design: str):
+    """One library per {name: source of chain_dp.cu}, built in parallel,
+    with the two entry points of `design` ("lane" or "short") bound;
+    prints each build's ptxas registers, shared memory and spills of that
+    design's kernels. Returns {name: ctypes.CDLL}."""
     from minimap2_rs_torch.kernels import build as kbuild
 
-    src = (kbuild.CSRC / "chain_dp.cu").read_text()
-    pat = re.compile(r"constexpr int kLaneThreads = \d+;")
-    if len(pat.findall(src)) != 1:
-        raise RuntimeError("chain_dp.cu: kLaneThreads not found once")
     procs = {}
-    for T in BLOCKS:
-        cu = out / f"v{T}.cu"
-        cu.write_text(pat.sub(f"constexpr int kLaneThreads = {T};", src))
-        procs[T] = subprocess.Popen(
-            [kbuild._nvcc(), *kbuild.NVCC_FLAGS, "-shared", "-o", str(out / f"v{T}.so"),
+    for i, (name, src) in enumerate(sources.items()):
+        cu = out / f"v{i}.cu"
+        cu.write_text(src)
+        procs[name] = subprocess.Popen(
+            [kbuild._nvcc(), *kbuild.NVCC_FLAGS, "-shared", "-o", str(out / f"v{i}.so"),
              str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     libs = {}
-    for T, p in procs.items():
+    for i, (name, p) in enumerate(procs.items()):
         log = p.communicate()[0]
         if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed for kLaneThreads = {T}:\n{log}")
-        regs = [l.split(":", 1)[1].strip() for l in log.splitlines() if "registers" in l]
-        print(f"kLaneThreads = {T}: ptxas {regs}")
-        lib = ctypes.CDLL(str(out / f"v{T}.so"))
-        for fn, n_out in ((lib.mm2t_chain_dp_aux_lane, 4), (lib.mm2t_chain_dp_lane, 2)):
+            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+        lines = log.splitlines()
+        print(f"{name}: ptxas")
+        for k, l in enumerate(lines):
+            if "Compiling entry" in l and f"_{design}_kernel" in l:
+                print("  ", " | ".join(x.strip() for x in lines[k:k + 4]))
+        lib = ctypes.CDLL(str(out / f"v{i}.so"))
+        for aux in (True, False):
+            fn = getattr(lib, entry_name(aux, design))
             fn.restype = ci
-            fn.argtypes = [vp] * 4 + [vp] * n_out + [vp, ci] + [ci] * 6 + [cf, cf, vp]
-        libs[T] = lib
+            fn.argtypes = [vp] * 4 + [vp] * (4 if aux else 2) + [vp, ci] + [ci] * 6 + [cf, cf, vp]
+        libs[name] = lib
     return libs
 
 
-def _call(lib, aux, args, scal, H, tab):
+def entry_name(aux: bool, design: str) -> str:
+    return f"mm2t_chain_dp{'_aux' if aux else ''}_{design}"
+
+
+def call_entry(lib, design, aux, args, scal, H, tab, outs=None):
+    """One launch of `design`'s entry point of `lib` on CUDA tensors, into
+    `outs` (allocated here when None, which a short kernel's timing would
+    then hold); the outputs."""
     import torch
 
     B, A = args[0].shape
-    outs = [torch.empty((B, A), dtype=torch.int32, device=args[0].device)
-            for _ in range(4 if aux else 2)]
-    fn = lib.mm2t_chain_dp_aux_lane if aux else lib.mm2t_chain_dp_lane
+    if outs is None:
+        outs = [torch.empty((B, A), dtype=torch.int32, device=args[0].device)
+                for _ in range(4 if aux else 2)]
+    fn = getattr(lib, entry_name(aux, design))
     err = fn(*[a.data_ptr() for a in args], *[o.data_ptr() for o in outs], tab.data_ptr(),
              tab.shape[0], B, A, min(H, A), scal.max_dist_x, scal.max_dist_y, scal.bw,
              scal.chn_pen_gap, scal.chn_pen_skip, torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"lane launch refused: cudaError {err}")
+        raise RuntimeError(f"{design} launch refused: cudaError {err}")
     return outs
 
 
@@ -103,7 +126,11 @@ def main() -> int:
     print(cs._nvidia_smi())
     out = Path(__file__).resolve().parent / "build" / "lane_ab"
     out.mkdir(parents=True, exist_ok=True)
-    libs = _build(out)
+    from minimap2_rs_torch.kernels import build as kbuild
+
+    src = (kbuild.CSRC / "chain_dp.cu").read_text()
+    libs = build_variants(out, {T: with_constants(src, kLaneThreads=T) for T in BLOCKS},
+                          "lane")
     rng = np.random.default_rng(1)
     tab = log2_table(20001).cuda()
     scal = chain_scalars_from_params(ChainParams.defaults_for_k(15))
@@ -120,13 +147,15 @@ def main() -> int:
             res: dict = {}
             for order in (BLOCKS, BLOCKS[::-1]):
                 for T in order:
-                    got = _call(libs[T], aux, args, scal, H, tab)
+                    got = call_entry(libs[T], "lane", aux, args, scal, H, tab)
                     torch.cuda.synchronize()
                     if not all(torch.equal(g, w) for g, w in zip(got, ref)):
                         raise AssertionError(f"{name}, T={T}, aux={aux}: != template")
-                    res.setdefault(T, []).append(
-                        cs._time_ms(lambda: _call(libs[T], aux, args, scal, H, tab)))
-            tmpl = cs._time_ms(lambda: kchain.template_batch(aux, *args, scal, H, tab))
+                    res.setdefault(T, []).append(cs._time_ms(
+                        lambda: call_entry(libs[T], "lane", aux, args, scal, H, tab),
+                        inner=cs.KERNEL_INNER))
+            tmpl = cs._time_ms(lambda: kchain.template_batch(aux, *args, scal, H, tab),
+                               inner=cs.KERNEL_INNER)
             bound_ms, bound_by, _pairs = cs._chain_bound(args, H, 4 if aux else 2,
                                                          tab.shape[0])
             print(f"{name} aux={aux} H={min(H, A)}: "

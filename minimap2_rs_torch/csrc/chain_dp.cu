@@ -1,21 +1,31 @@
-// Colinear chaining DP for Hopper: two variants, each with an exact
-// window and a pruned instance, and a block-per-read kernel for the exact
-// window at the long-read shapes.
+// Colinear chaining DP for Hopper: two variants, each in three designs,
+// and a pruned instance of each.
 //
 // Replaces all six Pallas kernels of minimap2_rs_tpu/ops/chain_pallas.py.
 // Their split into static-sublane, dynamic-sublane and lane layouts
 // existed only for the TPU's VMEM and (8, 128) tiling; here a runtime
-// window H serves every shape, and the shape picks one of two designs
-// (kernels/chain_dp.py decides, by A, H and the pruning):
+// window H serves every shape, and the shape picks one of three designs
+// (kernels/chain_dp.py decides, by A, H and the pruning, before the
+// launch):
 //
-//   mm2t_chain_dp_aux (kAux = true) -> (f, cnt, sq, sr), for the lite path:
-//     _static_aux_kernel     (A < 1024, full window)
-//     _chain_aux_kernel      (A < 1024, truncated window)
-//     _chain_aux_kernel_lane (A >= 1024): mm2t_chain_dp_aux_lane
-//   mm2t_chain_dp     (kAux = false) -> (f, prev), for the general path:
-//     _static_kernel         (A < 1024, full window)
-//     _chain_kernel          (A < 1024, truncated window)
-//     _chain_kernel_lane     (A >= 1024): mm2t_chain_dp_lane
+//   short-read kernel (chain_dp_short_kernel): A < 1024, exact window; a
+//     warp per read with the whole read in shared memory;
+//   lane kernel (chain_dp_lane_kernel): A >= 1024, exact window whose
+//     ring fits a block; a block per read, the window in shared memory;
+//   warp-per-read template (chain_dp_kernel): the pruned instances, and
+//     any exact-window shape whose blocks would not fit shared memory.
+//
+//   kAux = true -> (f, cnt, sq, sr), for the lite path:
+//     _static_aux_kernel     (A < 1024, full window):      mm2t_chain_dp_aux_short
+//     _chain_aux_kernel      (A < 1024, truncated window): mm2t_chain_dp_aux_short
+//     _chain_aux_kernel_lane (A >= 1024):                  mm2t_chain_dp_aux_lane
+//   kAux = false -> (f, prev), for the general path:
+//     _static_kernel         (A < 1024, full window):      mm2t_chain_dp_short
+//     _chain_kernel          (A < 1024, truncated window): mm2t_chain_dp_short
+//     _chain_kernel_lane     (A >= 1024):                  mm2t_chain_dp_lane
+//   The template's entries, mm2t_chain_dp_aux and mm2t_chain_dp, take any
+//   shape; kernels/chain_dp.template_batch keeps them callable so a run
+//   can time the previous design on the same inputs.
 //
 // Contract (chain_ops.chain_dp_batch / chain_dp_aux_batch in the JAX
 // package): for anchor i of read b, the best f[j] + comput_sc(i, j) over
@@ -24,10 +34,10 @@
 // sq/sr = own coordinates. Otherwise prev = the chosen j, and cnt, sq, sr
 // follow it (cnt + 1, its chain start).
 //
-// Design of the warp-per-read template (chain_dp_kernel: A < 1024, the
-// pruned instances, and a lane-shaped ring over a block's shared
-// memory): one warp per read. The DP is sequential in i, so the warp
-// walks i in order; its 32 lanes stride over the j window, each keeping
+// Design of the warp-per-read template (chain_dp_kernel: the pruned
+// instances, and shapes whose blocks would not fit): one warp per read.
+// The DP is sequential in i, so the warp walks i in order; its 32 lanes
+// stride over the j window, each keeping
 // its best (score, j), and a shuffle reduction picks the max score and
 // then the largest j. Lane 0 writes row i; __syncwarp() orders that
 // write before row i+1 reads it. The window is read from global memory
@@ -36,19 +46,21 @@
 // reads cnt/sq/sr at the chosen j. What bounds it: the latency of each
 // sequential step (a window sweep of dependent global loads, a 5-level
 // shuffle and, for aux, the dependent load of the chosen predecessor's
-// statistics), not FLOPs. At the short-read shape it runs 1024 warps, one
-// wave on 132 SMs; at the lane shapes it ran 128 warps, one per SM, at
-// about 2% of the card's bound (PERF.md), hence the lane kernel below,
-// whose header gives its design.
+// statistics), not FLOPs. At the lane shapes it ran 128 warps, one per
+// SM, at about 2% of the card's bound, and at the short-read shape about
+// 1.4 us a row (PERF.md), hence the lane and short-read kernels below,
+// whose headers give their designs.
 //
 // Exactness: the penalty is (int)(pen_gap*dd + pen_skip*dg
 // + 0.5f*log2(dd+1)) in f32 with no FMA contraction (__fmul_rn /
 // __fadd_rn, and -fmad=false), log2 read from a host-built table of the
 // oracle's mg_log2 (oracle/lchain.py:51-80). Differences are taken in
-// 64-bit integers. Rows after a read's last valid anchor (grp == -1
-// padding, which the mapper places at the end with no admissible
-// predecessor) take the base case directly, as the Pallas kernels'
-// padding epilogue does (chain_pallas.py:274-285).
+// 64-bit integers by the template and the lane kernel, in 32-bit ones by
+// the short-read kernel (its header says why that is exact). Rows after
+// a read's last valid anchor (grp == -1 padding, which the mapper places
+// at the end with no admissible predecessor) take the base case
+// directly, as the Pallas kernels' padding epilogue does
+// (chain_pallas.py:274-285).
 //
 // The pruned instances (kPrune; mm2t_chain_dp_prune and
 // mm2t_chain_dp_aux_prune) replicate the reference's order-dependent
@@ -66,10 +78,12 @@
 // so it needs no reset between rows. The aux instance keeps prev in a
 // per-read scratch as well, for the marks.
 //
-// ptxas -v for sm_90a (build log of an H100 run, before the lane
-// kernel), as <kAux, kPrune>: <false, false> 44 registers, <true, false>
-// 48, <false, true> 32 and <true, true> 40 (both with 1 KB of shared
-// memory); all 0 bytes of stack and no spill stores or loads.
+// ptxas -v for sm_90a (build log of an H100 run): the template as
+// <kAux, kPrune> <false, false> 42 registers, <true, false> 48,
+// <false, true> 32 and <true, true> 40 (both with 1 KB of shared
+// memory); the lane kernel 44 and 48; the short-read kernel's eight
+// <kAux, kSkip, kWide> instances 40 to 56; all 0 bytes of stack and no
+// spill stores or loads.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -509,6 +523,394 @@ int launch_lane(const void* grp, const void* rpos, const void* qpos,
   return (int)cudaGetLastError();
 }
 
+// ---- the short-read kernel (exact window, A < 1024) ---------------------
+//
+// A group of kShortThreads threads per read (one warp), kShortReads reads
+// a block. The whole read lives in dynamic shared memory: its four input
+// columns interleaved as one int4 a slot (one 128-bit load fetches a
+// predecessor), loaded once and coalesced, and its outputs (f and cnt,
+// sq, sr, or f and prev). The block also stages kShortTab entries of a
+// table built from the log2 table (short_stage): at pen_skip == 0 (the
+// default) the penalty depends on dd alone, and the table holds it whole;
+// otherwise it holds 0.5f * log2(dd + 1). An admissible pair has
+// dd <= bw, so below kShortTab (the default band, bw = 500) every lookup
+// hits shared memory, and only the instance for a wider band reads the
+// global table.
+//
+// The row walk is pipelined so that a row's critical path holds no pair
+// scoring. A pair's score without f[j] does not depend on the DP, and
+// f[j] of every slot but the newest is final one row early. So while
+// row i's two warp reductions are in flight, each thread scores its slots
+// j = lo + tid, lo + tid + 32, ... of row i + 1's window [lo, i]
+// (ShortRow), in groups of kShortUnroll slots scored as independent
+// chains, the row's last group cut to the strides that reach i:
+// short_pair() tests admissibility (32-bit, no branch), a warp vote skips
+// a group with no admissible slot in the warp, and short_score() adds the
+// penalty (kNegInf where not admissible). Each thread adds f[j] to all
+// but the newest slot (j < i) and keeps their best (bo, jo), ties to the
+// largest j, and the newest slot's score sn. Row i + 1 itself then only adds f[i],
+// taken from registers every thread holds (f_last), to sn, merges it, and
+// runs two __reduce_max_sync: the max score, then the largest j holding
+// it. Every thread computes the row's outputs and writes them to shared
+// memory itself (the same values), so each later read of a row is of the
+// thread's own write and needs no barrier; the newest slot's statistics
+// come from registers (c_last, ...), an older winner's from shared
+// memory. Nothing on a row's path touches global memory: the outputs are
+// written, coalesced, after the walk.
+//
+// With kShortThreads = 64 (two warps a read; short_block_ab.py times both)
+// each warp reduces its half, the warp leaders write parity-buffered
+// partials, and a named barrier of the group's 64 threads (bar.sync
+// 1 + group, 64) precedes the combine: one barrier a row, as in the lane
+// kernel.
+//
+// Exactness of 32-bit scoring: valid anchors' positions lie in [0, 2^31)
+// (the mapper passes x_lo and y_lo, chain_inputs in models/stages.py), so
+// the wrapped differences dr, dq of two valid anchors are exact; the
+// unsigned compares (dq - 1 <u min(mdx, mdy), dr - 1 <u mdx; the Pallas
+// kernel's reduced form, chain_pallas.py:114-121) pass exactly the pairs
+// with dq in [1, min(mdx, mdy)] and dr in [1, mdx], and only those use dd.
+// With pen_skip == 0 (instance kSkip = false) the reference's penalty is
+// trunc(fl(fl(pen_gap * dd) + fl(0.5 * log2(dd + 1)))), the staged value,
+// and it is 0 where dd == 0, so it is subtracted unconditionally. A slot
+// that is not admissible adds f[j] to kNegInf: it stays below every
+// admissible score and below span[i] >= 0, so it never wins.
+//
+// What bounds it: the scoring. On the headline's inputs (B = 1024,
+// A = 256) the walk without it takes about a fifth of the kernel's time
+// (PERF.md); with about 8 warps an SM its dependent chains leave most
+// issue slots empty. Four slots a group beat two, and one warp a read
+// two (short_block_ab.py times both).
+constexpr int kShortThreads = 32;  // threads per read
+constexpr int kShortWarps = kShortThreads / 32;
+constexpr int kShortReads = 4;     // reads per block
+constexpr int kShortTab = 1024;    // penalty-table entries staged in shared memory
+constexpr int kShortUnroll = 4;    // slots a thread scores as one group
+
+// bar.sync on the named barrier of the block's read group g: its
+// kShortThreads threads only (barrier 0 is __syncthreads)
+__device__ __forceinline__ void group_sync(int g) {
+#ifdef MM2T_CUDA_EMUL
+  mm2t_emul::bar_sync(1 + g, kShortThreads);
+#else
+  asm volatile("bar.sync %0, %1;" ::"r"(1 + g), "r"(kShortThreads) : "memory");
+#endif
+}
+
+// The admissibility of predecessor slot s = (grp, rpos, qpos, span) for
+// anchor (gi, ri, qi), with the pair's dd and dg: 32-bit, branch-free.
+struct ShortPair {
+  bool ok;
+  int dd, dg;
+};
+
+__device__ __forceinline__ ShortPair short_pair(int gi, int ri, int qi, int4 s,
+                                                unsigned mn_u, unsigned mdx_u,
+                                                int bw) {
+  const int dq = (int)((unsigned)qi - (unsigned)s.z);
+  const int dr = (int)((unsigned)ri - (unsigned)s.y);
+  const unsigned de = (unsigned)dr - (unsigned)dq;
+  const int dd = (int)((int)de < 0 ? 0u - de : de);
+  const bool ok = s.x == gi && (unsigned)dq - 1u < mn_u &&
+                  (unsigned)dr - 1u < mdx_u && dd <= bw;
+  return ShortPair{ok, dd, min(dr, dq)};
+}
+
+// comput_sc of an admissible pair without f[j]; kNegInf where not
+// admissible. kSkip: pen_skip != 0; kWide: bw >= kShortTab. s_tab holds
+// the first kShortTab entries of a staged table (short_stage): at
+// pen_skip == 0 the penalty depends on dd alone, and the default band's
+// instance reads it whole from s_tab; otherwise s_tab holds 0.5f * log2,
+// and the wide band's instance reads the global table (cached, and
+// branch-free).
+template <bool kSkip, bool kWide>
+__device__ __forceinline__ int short_score(
+    ShortPair p, int span_j, const int* s_tab,
+    const float* __restrict__ log2tab, float pen_gap, float pen_skip) {
+  const int t = p.ok ? p.dd : 0;  // dd <= bw < the table's length
+  int pen;
+  if (!kSkip && !kWide) {
+    pen = s_tab[t];
+  } else {
+    const float hl = kWide ? __fmul_rn(0.5f, __ldg(log2tab + t))
+                           : __int_as_float(s_tab[t]);
+    float lin = __fmul_rn(pen_gap, (float)p.dd);
+    if (kSkip) lin = __fadd_rn(lin, __fmul_rn(pen_skip, (float)p.dg));
+    pen = __float2int_rz(__fadd_rn(lin, hl));
+  }
+  int sc = min(span_j, p.dg);
+  if (!kSkip || p.dd != 0 || p.dg > span_j) sc -= pen;
+  return p.ok ? sc : kNegInf;
+}
+
+// The scoring of one row's window, for anchor nx: each thread's best
+// (bo, jo) over its slots j < i with f[j] added, ties to the largest j,
+// and the score sn of its slot j == i (kNegInf if it holds none).
+template <bool kSkip, bool kWide>
+struct ShortRow {
+  int4 nx;
+  int i, tid, bw;
+  unsigned mn_u, mdx_u;
+  float pen_gap, pen_skip;
+  const int4* s_in;
+  const int* s_f;
+  const int* s_tab;
+  const float* log2tab;
+  int bo = kNegInf, jo = -1, sn = kNegInf;
+
+  // kU slots from b0 + tid, kShortThreads apart, as independent chains
+  template <int kU>
+  __device__ __forceinline__ void group(int b0) {
+    int4 s[kU];
+    ShortPair p[kU];
+    bool any = false;
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int j = b0 + tid + u * kShortThreads;
+      s[u] = s_in[min(j, i)];  // a slot of the read, for j past i
+      p[u] = short_pair(nx.x, nx.y, nx.z, s[u], mn_u, mdx_u, bw);
+      p[u].ok = p[u].ok && j <= i;
+      any = any || p[u].ok;
+    }
+    // a group with no admissible slot in the warp skips the penalties
+    if (!__any_sync(kFull, any)) return;
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int j = b0 + tid + u * kShortThreads;
+      const int sc = short_score<kSkip, kWide>(p[u], s[u].w, s_tab, log2tab,
+                                               pen_gap, pen_skip);
+      // s_f[i] is not written yet: used only when j < i
+      const int v = sc + s_f[min(j, i)];
+      // j ascends per thread, so >= keeps its largest j among equal scores
+      const bool take = j < i && v >= bo;
+      bo = take ? v : bo;
+      jo = take ? j : jo;
+      sn = j == i ? sc : sn;
+    }
+  }
+
+  // a group of the `left` (warp-uniform) strides of slots that reach i,
+  // at most kU: the last group of a row scores no stride wholly past i
+  template <int kU>
+  __device__ __forceinline__ void group_upto(int b0, int left) {
+    if constexpr (kU > 1) {
+      if (left < kU) return group_upto<kU - 1>(b0, left);
+    }
+    group<kU>(b0);
+  }
+
+  __device__ __forceinline__ void score(int lo) {
+    for (int b0 = lo; b0 <= i; b0 += kShortUnroll * kShortThreads)
+      group_upto<kShortUnroll>(b0, (i - b0) / kShortThreads + 1);
+  }
+};
+
+// entry t of the staged table: the whole penalty of dd = t at pen_skip == 0
+// (the reference's fl(fl(pen_gap * dd) + fl(0.5 * log2(dd + 1))), then
+// truncated), else the bits of 0.5f * log2(t + 1)
+template <bool kSkip>
+__device__ __forceinline__ int short_stage(int t, const float* __restrict__ log2tab,
+                                           float pen_gap) {
+  const float hl = __fmul_rn(0.5f, log2tab[t]);
+  if (kSkip) return __float_as_int(hl);
+  return __float2int_rz(__fadd_rn(__fmul_rn(pen_gap, (float)t), hl));
+}
+
+template <bool kAux, bool kSkip, bool kWide>
+__global__ void __launch_bounds__(kShortReads * kShortThreads)
+chain_dp_short_kernel(
+    const int* __restrict__ grp, const int* __restrict__ rpos,
+    const int* __restrict__ qpos, const int* __restrict__ span,
+    int* __restrict__ f, int* __restrict__ o1, int* __restrict__ o2,
+    int* __restrict__ o3, const float* __restrict__ log2tab, int tab_len,
+    int B, int A, int H, int mdx, int mdy, int bw, float pen_gap,
+    float pen_skip) {
+  extern __shared__ int4 s_short[];
+  // per parity, read group and warp: (best, jb); used at kShortWarps > 1
+  __shared__ int s_part[2][kShortReads][kShortWarps][2];
+  int* s_tab = reinterpret_cast<int*>(s_short);
+  const int n_tab = min(tab_len, kShortTab);
+  for (int t = threadIdx.x; t < n_tab; t += blockDim.x)
+    s_tab[t] = short_stage<kSkip>(t, log2tab, pen_gap);
+  __syncthreads();
+
+  const int gid = threadIdx.x / kShortThreads;
+  const int tid = threadIdx.x % kShortThreads;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int b = blockIdx.x * kShortReads + gid;
+  if (b >= B) return;  // whole groups exit together, after the block's barrier
+  // layout: the table, then every group's slots, then every group's outputs
+  int4* s_in = s_short + kShortTab / 4 + (size_t)gid * A;
+  int* s_f = reinterpret_cast<int*>(s_short + kShortTab / 4 +
+                                    (size_t)kShortReads * A) +
+             (size_t)gid * (kAux ? 4 : 2) * A;
+  int* s_c = s_f + A;  // cnt (aux) or prev
+  int* s_sq = kAux ? s_f + 2 * A : nullptr;
+  int* s_sr = kAux ? s_f + 3 * A : nullptr;
+
+  const size_t base = (size_t)b * A;
+  int last = -1;
+  for (int j = tid; j < A; j += kShortThreads) {
+    const int gj = grp[base + j];
+    s_in[j] = make_int4(gj, rpos[base + j], qpos[base + j], span[base + j]);
+    if (gj != -1) last = j;
+  }
+  last = __reduce_max_sync(kFull, last);
+  if (kShortWarps > 1) {
+    // parity 0 here; row i uses parity (i + 1) & 1
+    if (lane == 0) s_part[0][gid][warp][0] = last;
+    group_sync(gid);
+    for (int w = 0; w < kShortWarps; ++w) last = max(last, s_part[0][gid][w][0]);
+  } else {
+    __syncwarp();  // the slots written above, visible to the warp
+  }
+  const int n = last + 1;  // rows >= n are trailing padding
+
+  const unsigned mn_u = (unsigned)min(mdx, mdy);
+  const unsigned mdx_u = (unsigned)mdx;
+  int f_last = 0, c_last = 0, q_last = 0, r_last = 0;
+  // row i's scoring, done during row i - 1: the best (bo, jo) of the slots
+  // j < i - 1 with f[j] added, and the score sn of slot i - 1 (kNegInf if
+  // this thread does not hold it); row 0 has no slot
+  int bo = kNegInf, jo = -1, sn = kNegInf;
+  int4 me = s_in[0];
+  for (int i = 0; i < n; ++i) {
+    const int4 nx = s_in[min(i + 1, A - 1)];  // row i + 1, for its scoring
+    const bool tn = sn != kNegInf && sn + f_last >= bo;
+    int best = tn ? sn + f_last : bo;
+    int jb = tn ? i - 1 : jo;
+    const int wb = __reduce_max_sync(kFull, best);
+    jb = __reduce_max_sync(kFull, best == wb ? jb : -1);
+    best = wb;
+
+    // row i + 1's scoring, while the reductions are in flight
+    ShortRow<kSkip, kWide> row{nx, i, tid, bw, mn_u, mdx_u, pen_gap, pen_skip,
+                               s_in, s_f, s_tab, log2tab};
+    if (i + 1 < n) row.score(max(0, i + 1 - H));
+    bo = row.bo;
+    jo = row.jo;
+    sn = row.sn;
+
+    if (kShortWarps > 1) {
+      const int par = (i + 1) & 1;
+      if (lane == 0) {
+        s_part[par][gid][warp][0] = best;
+        s_part[par][gid][warp][1] = jb;
+      }
+      group_sync(gid);
+      for (int w = 0; w < kShortWarps; ++w) {
+        const int pb = s_part[par][gid][w][0];
+        const int pj = s_part[par][gid][w][1];
+        if (pb > best || (pb == best && pj > jb)) {
+          best = pb;
+          jb = pj;
+        }
+      }
+    }
+    // best > span[i] >= 0 only for an admissible winner
+    const bool win = best > me.w;
+    const int fi = win ? best : me.w;
+    s_f[i] = fi;
+    if (kAux) {
+      int ci = 1, qsi = me.z, rsi = me.y;
+      if (win && jb == i - 1) {
+        ci = c_last + 1;
+        qsi = q_last;
+        rsi = r_last;
+      } else if (win) {
+        ci = s_c[jb] + 1;
+        qsi = s_sq[jb];
+        rsi = s_sr[jb];
+      }
+      s_c[i] = ci;
+      s_sq[i] = qsi;
+      s_sr[i] = rsi;
+      c_last = ci;
+      q_last = qsi;
+      r_last = rsi;
+    } else {
+      s_c[i] = win ? jb : -1;
+    }
+    f_last = fi;
+    me = nx;
+  }
+
+  // every thread wrote every row, and slot j >= n itself: no barrier
+  int* fo = f + base;
+  int* co = o1 + base;
+  int* qo = kAux ? o2 + base : nullptr;
+  int* ro = kAux ? o3 + base : nullptr;
+  for (int j = tid; j < A; j += kShortThreads) {
+    if (j < n) {
+      fo[j] = s_f[j];
+      co[j] = s_c[j];
+      if (kAux) {
+        qo[j] = s_sq[j];
+        ro[j] = s_sr[j];
+      }
+    } else {
+      const int4 s = s_in[j];
+      fo[j] = s.w;
+      co[j] = kAux ? 1 : -1;
+      if (kAux) {
+        qo[j] = s.z;
+        ro[j] = s.y;
+      }
+    }
+  }
+}
+
+// the short-read kernel's dynamic shared memory: the staged table, and a
+// slot (4 words) and the outputs (4 aux, 2 (f, prev)) a row for each of
+// the block's reads
+template <bool kAux>
+size_t short_smem_bytes(int A) {
+  return (size_t)kShortTab * sizeof(float) +
+         (size_t)kShortReads * A * (kAux ? 8 : 6) * sizeof(int);
+}
+
+template <bool kAux, bool kSkip, bool kWide>
+int launch_short_as(const void* grp, const void* rpos, const void* qpos,
+                    const void* span, void* f, void* o1, void* o2, void* o3,
+                    const void* log2tab, int tab_len, int B, int A, int H,
+                    int mdx, int mdy, int bw, float pen_gap, float pen_skip,
+                    void* stream) {
+  const size_t smem = short_smem_bytes<kAux>(A);
+  // a block over the limit is refused here and raised by the caller
+  const cudaError_t e = cudaFuncSetAttribute(
+      chain_dp_short_kernel<kAux, kSkip, kWide>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int blocks = (B + kShortReads - 1) / kShortReads;
+  const int threads = kShortReads * kShortThreads;
+  chain_dp_short_kernel<kAux, kSkip, kWide>
+      <<<blocks, threads, smem, (cudaStream_t)stream>>>(
+      (const int*)grp, (const int*)rpos, (const int*)qpos, (const int*)span,
+      (int*)f, (int*)o1, (int*)o2, (int*)o3, (const float*)log2tab, tab_len,
+      B, A, H, mdx, mdy, bw, pen_gap, pen_skip);
+  return (int)cudaGetLastError();
+}
+
+// picks the instance: pen_skip == 0 drops its term, bw < kShortTab the
+// global table
+template <bool kAux>
+int launch_short(const void* grp, const void* rpos, const void* qpos,
+                 const void* span, void* f, void* o1, void* o2, void* o3,
+                 const void* log2tab, int tab_len, int B, int A, int H,
+                 int mdx, int mdy, int bw, float pen_gap, float pen_skip,
+                 void* stream) {
+  if (B <= 0 || A <= 0) return (int)cudaSuccess;
+  const bool skip = pen_skip != 0.0f;
+  const bool wide = bw >= kShortTab;
+  auto* fn = skip ? (wide ? launch_short_as<kAux, true, true>
+                          : launch_short_as<kAux, true, false>)
+                  : (wide ? launch_short_as<kAux, false, true>
+                          : launch_short_as<kAux, false, false>);
+  return fn(grp, rpos, qpos, span, f, o1, o2, o3, log2tab, tab_len, B, A, H,
+            mdx, mdy, bw, pen_gap, pen_skip, stream);
+}
+
 }  // namespace
 
 // Every entry point launches on `stream`, allocates nothing and does not
@@ -560,6 +962,31 @@ extern "C" int mm2t_chain_dp_lane(
   return launch_lane<false>(grp, rpos, qpos, span, f, prev, nullptr, nullptr,
                             log2tab, tab_len, B, A, H, mdx, mdy, bw, pen_gap,
                             pen_skip, stream);
+}
+
+// The short-read kernel: the same contracts as mm2t_chain_dp_aux and
+// mm2t_chain_dp, for the exact window; its block of kShortReads whole
+// reads must fit a block's shared memory (kernels/chain_dp.py picks it).
+extern "C" int mm2t_chain_dp_aux_short(
+    const void* grp, const void* rpos, const void* qpos, const void* span,
+    void* f, void* cnt, void* sq, void* sr,
+    const void* log2tab, int tab_len,
+    int B, int A, int H, int mdx, int mdy, int bw,
+    float pen_gap, float pen_skip, void* stream) {
+  return launch_short<true>(grp, rpos, qpos, span, f, cnt, sq, sr, log2tab,
+                            tab_len, B, A, H, mdx, mdy, bw, pen_gap, pen_skip,
+                            stream);
+}
+
+extern "C" int mm2t_chain_dp_short(
+    const void* grp, const void* rpos, const void* qpos, const void* span,
+    void* f, void* prev,
+    const void* log2tab, int tab_len,
+    int B, int A, int H, int mdx, int mdy, int bw,
+    float pen_gap, float pen_skip, void* stream) {
+  return launch_short<false>(grp, rpos, qpos, span, f, prev, nullptr,
+                             nullptr, log2tab, tab_len, B, A, H, mdx, mdy, bw,
+                             pen_gap, pen_skip, stream);
 }
 
 // The pruned instances. prev_scratch (aux only) and t_scratch are (B, A)

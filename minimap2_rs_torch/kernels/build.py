@@ -28,6 +28,15 @@ NVCC_FLAGS = [
     "-Xptxas", "-v",
 ]
 
+# the chain-DP entry points of csrc/chain_dp.cu, each with its count of
+# output and scratch pointers and whether it takes max_chain_skip
+CHAIN_ENTRIES = (
+    ("mm2t_chain_dp_aux", 4, False), ("mm2t_chain_dp", 2, False),
+    ("mm2t_chain_dp_aux_short", 4, False), ("mm2t_chain_dp_short", 2, False),
+    ("mm2t_chain_dp_aux_lane", 4, False), ("mm2t_chain_dp_lane", 2, False),
+    ("mm2t_chain_dp_aux_prune", 6, True), ("mm2t_chain_dp_prune", 3, True),
+)
+
 _lib = None
 build_log = ""
 
@@ -80,11 +89,8 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        for fn, n_out, prune in (
-            (lib.mm2t_chain_dp_aux, 4, False), (lib.mm2t_chain_dp, 2, False),
-            (lib.mm2t_chain_dp_aux_lane, 4, False), (lib.mm2t_chain_dp_lane, 2, False),
-            (lib.mm2t_chain_dp_aux_prune, 6, True), (lib.mm2t_chain_dp_prune, 3, True),
-        ):
+        for name, n_out, prune in CHAIN_ENTRIES:
+            fn = getattr(lib, name)
             fn.restype = ci
             fn.argtypes = [
                 vp, vp, vp, vp,      # grp, rpos, qpos, span

@@ -18,13 +18,21 @@ reference's max_chain_skip early break, which the JAX package runs in
 its lax.scan DP under MM2T_SKIP_PRUNE (ops/chain_ops.py:80-137); it has
 no Pallas counterpart.
 
-Two designs, picked by shape (`lane_design`): at the lane shape class
-(A >= 1024) with an exact window whose shared-memory ring fits a block,
-the block-per-read kernel (mm2t_chain_dp_aux_lane, mm2t_chain_dp_lane:
-the window in shared memory, one barrier per row); everywhere else the
-warp-per-read template with a runtime window H = min(window, A), which
-reads the window from global memory. Both are bound by the sequential
-row walk's per-step latency, not FLOPs (see the source's headers).
+Three designs, picked by shape before the launch (`design`), each with a
+runtime window H = min(window, A):
+- "short", at A < 1024 with an exact window (the static and dynamic
+  shape classes): the short-read kernel (mm2t_chain_dp_aux_short,
+  mm2t_chain_dp_short), a warp per read with the whole read in shared
+  memory, 32-bit scoring and hardware warp reductions, when its block of
+  SHORT_READS reads fits shared memory;
+- "lane", at A >= 1024 with an exact window whose shared-memory ring
+  fits a block: the block-per-read kernel (mm2t_chain_dp_aux_lane,
+  mm2t_chain_dp_lane: the window in shared memory, one barrier per row);
+- "template" for every other call (the pruned ones, and blocks that
+  would not fit): the warp-per-read template, which reads the window
+  from global memory.
+All are bound by the sequential row walk's per-step latency, not FLOPs
+(see the source's headers).
 
 On CUDA tensors each wrapper launches its kernel or raises; on CPU
 tensors it runs the plain version in ops/chain_ops.py. Launches are
@@ -78,13 +86,38 @@ def lane_ring_bytes(H: int, aux: bool) -> int:
     return (H + LANE_THREADS) * (8 if aux else 5) * 4
 
 
-def lane_design(A: int, window: int, aux: bool, max_chain_skip: int | None) -> bool:
-    """True when a (B, A) call takes the block-per-read lane kernel: the
-    lane shape class, the exact window (no max_chain_skip) and a ring
-    that fits a block's shared memory. A choice by shape, made before the
-    launch; the warp-per-read template takes every other call."""
-    return (max_chain_skip is None and shape_class(A, window) == "lane"
-            and lane_ring_bytes(min(window, A), aux) <= LANE_SMEM_MAX)
+# the short-read kernel's reads per block and staged table entries
+# (kShortReads, kShortTab in csrc/chain_dp.cu), and the dynamic shared
+# memory its block may take: 227 KB, less 1 KB for its static partials
+SHORT_READS = 4
+SHORT_TAB = 1024
+SHORT_SMEM_MAX = 227 * 1024 - 1024
+
+
+def short_block_bytes(A: int, aux: bool) -> int:
+    """Shared memory of a short-read kernel block: the staged table, and
+    for each of its reads A slots of 8 words for aux (grp, rpos, qpos,
+    span, f, cnt, sq, sr), 6 for (f, prev)."""
+    return SHORT_TAB * 4 + SHORT_READS * A * (8 if aux else 6) * 4
+
+
+def design(A: int, window: int, aux: bool, max_chain_skip: int | None) -> str:
+    """The design a (B, A) call takes, by shape, before the launch:
+    "short" for the exact window at A < 1024, "lane" for the exact window
+    at A >= 1024, each when its block fits shared memory, else
+    "template"."""
+    if max_chain_skip is not None:
+        return "template"
+    if shape_class(A, window) == "lane":
+        fits = lane_ring_bytes(min(window, A), aux) <= LANE_SMEM_MAX
+        return "lane" if fits else "template"
+    return "short" if short_block_bytes(A, aux) <= SHORT_SMEM_MAX else "template"
+
+
+def entry_point(variant: str, design_: str) -> str:
+    """The library entry of `variant` ("chain_dp_aux", "chain_dp", or
+    either with "_prune") in a design."""
+    return f"mm2t_{variant}" + ("" if design_ == "template" else f"_{design_}")
 
 
 def _check(name: str, t: torch.Tensor, shape, dtype, device):
@@ -161,9 +194,7 @@ def _run(variant: str, n_out: int, ref, grp, rpos, qpos, span,
     A = grp.shape[1]
     if max_chain_skip is not None:
         variant += "_prune"
-    entry = f"mm2t_{variant}"
-    if lane_design(A, window, n_out == 4, max_chain_skip):
-        entry += "_lane"
+    entry = entry_point(variant, design(A, window, n_out == 4, max_chain_skip))
     outs = _launch(entry, n_out, grp, rpos, qpos, span, scalars, window, log2_tab,
                    max_chain_skip)
     key = f"{variant}/{shape_class(A, window)}"
@@ -178,9 +209,9 @@ def _run(variant: str, n_out: int, ref, grp, rpos, qpos, span,
 def template_batch(aux: bool, grp, rpos, qpos, span, scalars: ChainScalars,
                    window: int, log2_tab: torch.Tensor):
     """The exact-window DP through the warp-per-read template at any
-    shape, on CUDA tensors: the design the lane shapes ran before the
-    lane kernel, kept callable so a run can time both on the same
-    inputs. Not a path of the mapper, and not counted."""
+    shape, on CUDA tensors: the design the short and lane shapes ran
+    before their own kernels, kept callable so a run can time both on
+    the same inputs. Not a path of the mapper, and not counted."""
     dev = _validate(grp, rpos, qpos, span, scalars, window, log2_tab, None)
     if dev.type != "cuda":
         raise ValueError("template_batch launches a kernel: CUDA tensors only")

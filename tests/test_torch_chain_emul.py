@@ -1,0 +1,220 @@
+"""The chain-DP kernels' logic on the CPU: csrc/chain_dp.cu compiled with
+g++ against csrc/emul/cuda_emul.h (one std::thread per CUDA thread,
+std::barrier for the barriers, the warp intrinsics between warp
+barriers), its short-read entry points run on seeded inputs and held
+equal to the plain versions. A text pass includes the header in place of
+<cuda_runtime.h> and rewrites the dynamic shared memory declarations and
+the <<<...>>> launches into calls of the header. The short-read kernel
+is built at one warp a read (kShortThreads = 32) and at two (64)."""
+
+import re
+import shutil
+import subprocess
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from minimap2_rs_torch.config import ChainParams
+from minimap2_rs_torch.ops.chain_ops import (
+    chain_dp_aux_batch_ref,
+    chain_dp_batch_ref,
+    chain_scalars_from_params,
+    log2_table,
+)
+from test_torch_chain_lane import TIE_KW, tie_read
+
+torch.set_num_threads(2)
+
+CSRC = Path(__file__).resolve().parent.parent / "minimap2_rs_torch" / "csrc"
+THREADS = (32, 64)
+SHORT = ("mm2t_chain_dp_aux_short", "mm2t_chain_dp_short")
+TEMPLATE = ("mm2t_chain_dp_aux", "mm2t_chain_dp")
+
+
+def emulated_source(src: str, short_threads: int) -> str:
+    """chain_dp.cu as g++ compiles it against cuda_emul.h."""
+    n_launch = src.count("<<<")
+    src = src.replace("#include <cuda_runtime.h>", '#include "cuda_emul.h"')
+    src = re.sub(r"extern __shared__ (\w+) (\w+)\[\];",
+                 r"\1* \2 = reinterpret_cast<\1*>(mm2t_emul::dynamic_smem());", src)
+    src, n = re.subn(r"([\w:]+(?:<[^<>;()]*>)?)\s*<<<(.*?)>>>\s*\(",
+                     r"mm2t_emul::launch(\1, \2, ", src)
+    assert n == n_launch > 0
+    src, n = re.subn(r"constexpr int kShortThreads = \d+;",
+                     f"constexpr int kShortThreads = {short_threads};", src)
+    assert n == 1
+    return src
+
+
+@pytest.fixture(scope="module")
+def binaries(tmp_path_factory):
+    """{kShortThreads: path of the emulated entry-point runner}, built in
+    parallel."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is not installed")
+    out = tmp_path_factory.mktemp("chain_emul")
+    src = (CSRC / "chain_dp.cu").read_text()
+
+    def build(threads):
+        cpp = out / f"chain_dp_t{threads}.cpp"
+        cpp.write_text(emulated_source(src, threads))
+        exe = out / f"chain_dp_t{threads}"
+        cmd = [gxx, "-std=c++20", "-O1", "-pthread", "-ffp-contract=off",
+               f"-I{CSRC / 'emul'}", str(cpp), str(CSRC / "emul" / "chain_dp_main.cpp"),
+               "-o", str(exe)]
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=240)
+        assert res.returncode == 0, res.stderr[-4000:]
+        return exe
+
+    with ThreadPoolExecutor(len(THREADS)) as ex:
+        return dict(zip(THREADS, ex.map(build, THREADS)))
+
+
+def chains(rng, B, A, ns, r0=0, q0=0, step=40, jitter=3):
+    """(grp, rpos, qpos, span) int32 (B, A): read b holds ns[b] anchors
+    sorted like the mapper's (colinear runs on two strands whose query
+    positions jitter, so some step back; 5% exact duplicates) from
+    positions r0 and q0, padding after."""
+    cols = [np.full((B, A), -1, np.int64) for _ in range(3)] + [np.full((B, A), 255, np.int64)]
+    for b, n in enumerate(ns):
+        g, r, q = [], [], []
+        while len(g) < n:
+            m = int(rng.integers(5, 60))
+            strand = int(rng.integers(0, 2)) << 31
+            ra = r0 + int(rng.integers(0, 200_000))
+            qa = q0 + int(rng.integers(0, 20_000))
+            steps = rng.integers(1, step, size=m)
+            jit = rng.integers(-jitter, jitter + 1, size=m)
+            g += [strand] * m
+            r += list(ra + np.cumsum(steps))
+            q += list(qa + np.cumsum(steps + jit))  # dq <= 0 at times
+        g, r, q = np.array(g[:n], np.int64), np.array(r[:n]), np.array(q[:n])
+        dup = rng.random(n) < 0.05
+        g, r, q = (np.r_[a, a[dup]][:n] for a in (g, r, q))
+        o = np.lexsort((q, r, g))
+        cols[0][b, :n], cols[1][b, :n], cols[2][b, :n] = g[o], r[o], q[o]
+        cols[3][b, :n] = rng.integers(11, 20, size=n)
+    assert max(c.max() for c in cols[1:3]) < 2**31
+    return tuple(c.astype(np.uint32).view(np.int32) for c in cols)
+
+
+def _case(name):
+    """(cols, scalars, window) of a named case."""
+    default = chain_scalars_from_params(ChainParams.defaults_for_k(15))
+    ns = [0, 20, 256, 255, 100, 31, 200, 1]  # empty, n < 32, full, ...
+    if name == "A=256, full window":
+        return chains(np.random.default_rng(7), 8, 256, ns), default, 256
+    if name == "A=256, window 64, jitter 10":
+        # winners at many distances dd, so each staged penalty is used
+        return chains(np.random.default_rng(7), 8, 256, ns, jitter=10), default, 64
+    if name == "tie read":
+        fill = (-1, -1, -1, 255)
+        cols = tuple(np.concatenate([a, np.full((1, 252), fill[c], np.int32)], axis=1)
+                     for c, a in enumerate(tie_read()))
+        return cols, chain_scalars_from_params(ChainParams.defaults_for_k(15, **TIE_KW)), 256
+    if name == "tie within a thread":
+        # anchors 0 and 1, 63 anchors of another group, anchor 2, one more
+        # of the other group, then anchor 3: its tied predecessors 1 and 65
+        # are 64 slots apart, so one thread scores both, and neither is the
+        # newest slot
+        g, r, q, sp = tie_read()
+        fill = lambda a, v, k: np.full((1, k), v, np.int32)
+        cols = tuple(np.concatenate([a[:, :2], fill(a, v, 63), a[:, 2:3], fill(a, v, 1),
+                                     a[:, 3:], fill(a, pad, 256 - 68)], axis=1)
+                     for a, v, pad in zip((g, r, q, sp), (7, 5000, 5000, 15), (-1, -1, -1, 255)))
+        return cols, chain_scalars_from_params(ChainParams.defaults_for_k(15, **TIE_KW)), 256
+    if name == "positions near 2^31 - 1":
+        cols = chains(np.random.default_rng(11), 8, 256, ns, r0=2**31 - 1 - 260_000,
+                      q0=2**31 - 1 - 30_000)
+        return cols, default, 256
+    if name == "pen_skip != 0":
+        skip = chain_scalars_from_params(ChainParams.defaults_for_k(15, chn_pen_skip=0.2))
+        return chains(np.random.default_rng(17), 8, 256, ns), skip, 256
+    if name.startswith("wide band"):
+        # small linear penalties, so pairs with a large dd can still win
+        wide = chain_scalars_from_params(ChainParams.defaults_for_k(
+            15, bw=20000, chn_pen_gap=0.0,
+            chn_pen_skip=0.001 if name.endswith("pen_skip != 0") else 0.0))
+        cols = chains(np.random.default_rng(13), 8, 256, ns, step=3000, jitter=2000)
+        return cols, wide, 256
+    raise KeyError(name)
+
+
+# the kernel's instances: pen_skip == 0 or not, bw below the staged table
+# (1024 entries) or not
+CASES = ("A=256, full window", "A=256, window 64, jitter 10", "tie read", "tie within a thread",
+         "positions near 2^31 - 1", "pen_skip != 0", "wide band, dd past the staged table",
+         "wide band, dd past the staged table, pen_skip != 0")
+
+
+def _run(exe, tmp_path, cols, scal, window, tab, entries):
+    B, A = cols[0].shape
+    inp, out = tmp_path / "in.bin", tmp_path / "out.bin"
+    hdr = np.array([B, A, min(window, A), scal.max_dist_x, scal.max_dist_y, scal.bw,
+                    tab.shape[0]], np.int32)
+    pens = np.array([scal.chn_pen_gap, scal.chn_pen_skip], np.float32)
+    inp.write_bytes(b"".join(a.tobytes() for a in (hdr, pens, *cols, tab.numpy())))
+    res = subprocess.run([str(exe), str(inp), str(out), *entries], capture_output=True,
+                         text=True, timeout=60)
+    assert res.returncode == 0, res.stderr
+    words = np.fromfile(out, np.int32)
+    got, pos = {}, 0
+    for e in entries:
+        n_out = 4 if "_aux" in e else 2
+        got[e] = (int(words[pos]), words[pos + 1:pos + 1 + n_out * B * A].reshape(n_out, B, A))
+        pos += 1 + n_out * B * A
+    assert pos == words.size
+    return got
+
+
+def _winner_dd(cols, prev):
+    """|dr - dq| of each row and its chosen predecessor, where it has one."""
+    r, q, prev = (x.long() for x in (cols[1], cols[2], prev))
+    j = prev.clamp(min=0)
+    return ((r - r.gather(1, j)) - (q - q.gather(1, j))).abs()[prev >= 0]
+
+
+@pytest.mark.parametrize("threads", THREADS)
+@pytest.mark.parametrize("case", CASES)
+def test_emulated_short_kernel_equals_plain(binaries, tmp_path, threads, case):
+    """Both short-read entry points give the plain versions' outputs bit
+    for bit; on the first case the template's do too, which checks the
+    emulation itself."""
+    cols, scal, window = _case(case)
+    tab = log2_table(20001)
+    entries = SHORT + (TEMPLATE if (case, threads) == (CASES[0], THREADS[0]) else ())
+    got = _run(binaries[threads], tmp_path, cols, scal, window, tab, entries)
+    t = tuple(torch.from_numpy(c.copy()) for c in cols)
+    want_aux = chain_dp_aux_batch_ref(*t, scal, window, tab)
+    want_prev = chain_dp_batch_ref(*t, scal, window, tab)
+    for entry, (rc, outs) in got.items():
+        assert rc == 0, (entry, rc)
+        want = want_aux if "_aux" in entry else want_prev
+        for name, g, w in zip(("f", "cnt/prev", "sq", "sr"), outs, want):
+            np.testing.assert_array_equal(g, w.numpy(), err_msg=f"{entry}: {name}")
+    # the cases reach what they are named for
+    chained = (want_prev[1] >= 0).sum().item()
+    assert chained > 0
+    if case == "tie read":
+        assert want_prev[1][0, 3].item() == 2
+    if case == "tie within a thread":
+        assert want_prev[1][0, 67].item() == 65
+    if case == "A=256, window 64, jitter 10":
+        assert set(range(16)) <= set(_winner_dd(t, want_prev[1]).tolist())
+    if case.startswith("wide band"):
+        assert (_winner_dd(t, want_prev[1]) >= 1024).any()
+
+
+def test_emulated_launch_refuses_an_oversized_block(binaries, tmp_path):
+    """A read too long for a block's shared memory is refused at launch
+    (return code != 0), not run: the wrapper raises on it."""
+    A = 8192  # 4 reads x 8192 slots x 32 B > 227 KB
+    cols = chains(np.random.default_rng(3), 1, A, [16])
+    scal = chain_scalars_from_params(ChainParams.defaults_for_k(15))
+    got = _run(binaries[THREADS[0]], tmp_path, cols, scal, A, log2_table(501),
+               ("mm2t_chain_dp_aux_short",))
+    assert got["mm2t_chain_dp_aux_short"][0] != 0

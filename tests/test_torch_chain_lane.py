@@ -1,8 +1,11 @@
-"""The chain-DP wrapper's choice between its two designs (the
-block-per-read lane kernel and the warp-per-read template), made in
-Python by shape before any launch, and the tie rule the lane kernel's
-block reduction must keep: the plain versions, like the JAX scan DP,
-take the largest j among equal scores."""
+"""The chain-DP wrapper's choice between its three designs (the
+short-read kernel, the block-per-read lane kernel and the warp-per-read
+template), made in Python by shape before any launch; the entry points
+it can form, against the library's bindings and the source; and the tie
+rule every kernel's reduction must keep: the plain versions, like the
+JAX scan DP, take the largest j among equal scores."""
+
+import re
 
 import numpy as np
 import pytest
@@ -14,6 +17,7 @@ import jax.numpy as jnp  # noqa: E402
 from minimap2_rs_tpu.config import ChainParams as JChainParams  # noqa: E402
 from minimap2_rs_tpu.ops import chain_ops as jchain  # noqa: E402
 from minimap2_rs_torch.config import ChainParams  # noqa: E402
+from minimap2_rs_torch.kernels import build as kbuild  # noqa: E402
 from minimap2_rs_torch.kernels import chain_dp as kchain  # noqa: E402
 from minimap2_rs_torch.ops.chain_ops import (  # noqa: E402
     chain_dp_aux_batch_ref,
@@ -24,40 +28,54 @@ from minimap2_rs_torch.ops.chain_ops import (  # noqa: E402
 
 torch.set_num_threads(2)
 
-# (A, window, aux, max_chain_skip) -> the lane kernel?
+CHAIN_CU = kbuild.CSRC / "chain_dp.cu"
+
+# (A, window, aux, max_chain_skip) -> the design
 DISPATCH = {
-    "lite long reads (aux, A=4480, H=1024)": (4480, 1024, True, None, True),
-    "general long reads (A=4480, H=4480)": (4480, 5000, False, None, True),
-    "largest general shape (A=11904, H=5000)": (11904, 5000, False, None, True),
-    "aux at A=11904, H=5000": (11904, 5000, True, None, True),
-    "lane, window below A": (1024, 128, True, None, True),
-    "aux ring at the limit (H=6720)": (8192, 6720, True, None, True),
-    "static (A=256)": (256, 256, True, None, False),
-    "static, window past A": (256, 5000, False, None, False),
-    "dynamic (A=256, H=64)": (256, 64, False, None, False),
-    "pruned lane": (4480, 5000, False, 25, False),
-    "pruned lane aux": (4480, 1024, True, 25, False),
-    "aux ring over 227 KB (H=6721)": (8192, 6721, True, None, False),
-    "(f, prev) ring over 227 KB (H=12000)": (12288, 12000, False, None, False),
+    "lite long reads (aux, A=4480, H=1024)": (4480, 1024, True, None, "lane"),
+    "general long reads (A=4480, H=4480)": (4480, 5000, False, None, "lane"),
+    "largest general shape (A=11904, H=5000)": (11904, 5000, False, None, "lane"),
+    "aux at A=11904, H=5000": (11904, 5000, True, None, "lane"),
+    "lane, window below A": (1024, 128, True, None, "lane"),
+    "aux ring at the limit (H=6720)": (8192, 6720, True, None, "lane"),
+    "static (A=256)": (256, 256, True, None, "short"),
+    "static, window past A": (256, 5000, False, None, "short"),
+    "dynamic (A=256, H=64)": (256, 64, False, None, "short"),
+    "dynamic aux (A=256, H=128)": (256, 128, True, None, "short"),
+    "dynamic (A=384, H=200)": (384, 200, False, None, "short"),
+    "static aux (A=384)": (384, 384, True, None, "short"),
+    "static (A=384)": (384, 5000, False, None, "short"),
+    "static aux (A=768, the 4x tier)": (768, 768, True, None, "short"),
+    "static (A=768)": (768, 5000, False, None, "short"),
+    "dynamic aux (A=384, H=128)": (384, 128, True, None, "short"),
+    "dynamic (A=768, H=256)": (768, 256, False, None, "short"),
+    "dynamic aux (A=768, H=1)": (768, 1, True, None, "short"),
+    "largest short shape (aux, A=1023)": (1023, 1023, True, None, "short"),
+    "pruned static aux (A=256)": (256, 256, True, 25, "template"),
+    "pruned static (A=768)": (768, 5000, False, 25, "template"),
+    "pruned dynamic aux (A=384, H=128)": (384, 128, True, 0, "template"),
+    "pruned lane": (4480, 5000, False, 25, "template"),
+    "pruned lane aux": (4480, 1024, True, 25, "template"),
+    "aux ring over 227 KB (H=6721)": (8192, 6721, True, None, "template"),
+    "(f, prev) ring over 227 KB (H=12000)": (12288, 12000, False, None, "template"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(DISPATCH))
 def test_lane_design_by_shape(case):
     A, window, aux, skip, want = DISPATCH[case]
-    assert kchain.lane_design(A, window, aux, skip) is want
-    ring = kchain.lane_ring_bytes(min(window, A), aux)
+    assert kchain.design(A, window, aux, skip) == want
     if skip is None and A >= 1024:
-        assert (ring <= kchain.LANE_SMEM_MAX) is want
+        ring = kchain.lane_ring_bytes(min(window, A), aux)
+        assert (ring <= kchain.LANE_SMEM_MAX) is (want == "lane")
+    if skip is None and A < 1024:
+        assert kchain.short_block_bytes(A, aux) <= kchain.SHORT_SMEM_MAX
 
 
-@pytest.mark.parametrize("case", sorted(DISPATCH))
-def test_wrapper_launches_the_chosen_entry(case, monkeypatch):
-    """On a CUDA device the wrapper launches the lane entry point exactly
-    when lane_design says so, else the template's (or its pruned
-    instance), and counts the launch under the Pallas shape class either
-    way. The launch itself is replaced: this machine has no card."""
-    A, window, aux, skip, want = DISPATCH[case]
+def _launched_entries(monkeypatch, A, window, aux, skip):
+    """The entries the wrapper launches for one (1, A) call on a CUDA
+    device, and the launch counts; the launch itself is replaced, as this
+    machine has no card."""
     entries = []
 
     def fake_launch(entry, n_out, grp, *_a, **_k):
@@ -72,11 +90,64 @@ def test_wrapper_launches_the_chosen_entry(case, monkeypatch):
     wrapper = kchain.chain_dp_aux_batch if aux else kchain.chain_dp_batch
     outs = wrapper(*cols, chain_scalars_from_params(ChainParams()), window,
                    log2_table(501), skip)
-    variant = ("chain_dp_aux" if aux else "chain_dp") + ("_prune" if skip is not None else "")
-    assert entries == [f"mm2t_{variant}" + ("_lane" if want else "")]
     assert len(outs) == (4 if aux else 2)
-    key = f"{variant}/{kchain.shape_class(A, window)}"
-    assert {k: v for k, v in kchain.launches.items() if v} == {key: 1}
+    return entries, {k: v for k, v in kchain.launches.items() if v}
+
+
+@pytest.mark.parametrize("case", sorted(DISPATCH))
+def test_wrapper_launches_the_chosen_entry(case, monkeypatch):
+    """On a CUDA device the wrapper launches the chosen design's entry
+    point (the template's, or its pruned instance, with no suffix) and
+    counts the launch under the Pallas shape class whatever the design."""
+    A, window, aux, skip, want = DISPATCH[case]
+    entries, counts = _launched_entries(monkeypatch, A, window, aux, skip)
+    variant = ("chain_dp_aux" if aux else "chain_dp") + ("_prune" if skip is not None else "")
+    assert entries == [f"mm2t_{variant}" + ("" if want == "template" else f"_{want}")]
+    assert counts == {f"{variant}/{kchain.shape_class(A, window)}": 1}
+
+
+def test_short_blocks_over_the_limit_take_the_template(monkeypatch):
+    """A short shape whose block would not fit shared memory takes the
+    template; at a limit of one byte less than the aux block at A = 768,
+    the smaller (f, prev) block still takes the short-read kernel."""
+    monkeypatch.setattr(kchain, "SHORT_SMEM_MAX", kchain.short_block_bytes(768, True) - 1)
+    assert kchain.design(768, 768, True, None) == "template"
+    assert kchain.design(768, 768, False, None) == "short"
+    assert kchain.design(256, 64, True, None) == "short"
+    entries, counts = _launched_entries(monkeypatch, 768, 768, True, None)
+    assert entries == ["mm2t_chain_dp_aux"]
+    assert counts == {"chain_dp_aux/static": 1}
+
+
+def _formable_entries():
+    """Every entry point the wrapper can form: each variant in each
+    design its shapes reach (a pruned call always takes the template)."""
+    names = set()
+    for A, window, aux, skip, _want in DISPATCH.values():
+        variant = ("chain_dp_aux" if aux else "chain_dp") + ("_prune" if skip is not None else "")
+        names.add(kchain.entry_point(variant, kchain.design(A, window, aux, skip)))
+    return names
+
+
+def test_every_formable_entry_is_bound_and_defined():
+    """Each entry point the wrapper can form is bound by kernels/build.py
+    and has an extern "C" definition in csrc/chain_dp.cu."""
+    formed = _formable_entries()
+    assert len(formed) == 8  # 2 variants x 3 designs + 2 pruned instances
+    bound = {name for name, _n, _p in kbuild.CHAIN_ENTRIES}
+    defined = set(re.findall(r'extern "C" int (\w+)\(', CHAIN_CU.read_text()))
+    assert formed <= bound <= defined, (formed - bound, bound - defined)
+
+
+@pytest.mark.parametrize("py_name,c_name", [
+    ("LANE_THREADS", "kLaneThreads"), ("SHORT_READS", "kShortReads"),
+    ("SHORT_TAB", "kShortTab"),
+])
+def test_wrapper_constants_match_the_source(py_name, c_name):
+    """The wrapper sizes each design's shared memory with the source's
+    constants."""
+    found = re.findall(rf"constexpr int {c_name} = (\d+);", CHAIN_CU.read_text())
+    assert found == [str(getattr(kchain, py_name))]
 
 
 def tie_read():
