@@ -3,8 +3,9 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from minimap2_rs_torch/csrc (the chain
-DP's two variants in their short-read, lane and template designs with
-their pruned instances, and the window scan; one nvcc per source, in
+DP's two variants in their short-read, lane and template designs, their
+pruned instances in the shared-memory and template designs, and the
+window scan in its tiled and sequential designs; one nvcc per source, in
 parallel) and maps through the port's
 Mapper.map_reads_paf:
 
@@ -46,23 +47,30 @@ the dynamic-window shape, which no mapping path launches, on the
 headline's inputs at window 128. A synthetic phase holds both lane
 kernels against their plain versions on the edge cases (no valid
 anchor, n < H, A not a multiple of the block, forced score ties, the
-largest general shape: A = 11,904, H = 5000), and both short-read
-kernels on theirs (an empty read, n < 32 and n = A; window 64; A = 384
-and 768, full and at window 128; forced ties; positions near 2^31 - 1;
-pen_skip != 0; bw 20000 with winners past the staged penalty table).
+largest general shape: A = 11,904, H = 5000), both short-read kernels
+on theirs (an empty read, n < 32 and n = A; window 64; A = 384 and 768,
+full and at window 128; forced ties; positions near 2^31 - 1;
+pen_skip != 0; bw 20000 with winners past the staged penalty table),
+and both pruned kernels at max_chain_skip 0, 1 and 25 on theirs (decoy
+clusters whose marks land a chunk or more back, with and without
+boosters, long enough to carry the skip counter across chunks, and at 31
+a chunk without a beat; chains whose predecessors sit at the window's
+edge; colinear runs with n < 32 and n = A; forced ties; anchors out of
+reference order, dr < 0; A = 1152 with B = 1).
 
 Every kernel row gets its bound from the inputs it was timed on: the
-candidate pairs the DP scores (the window scan: the positions), times
-the operations per pair counted from the kernel source, over the card's
-float32 rate, against the bytes each input read once and each output
-written once over its memory rate; the larger names what bounds it.
+candidate pairs the DP scores (a pruned row: only those its walk visits
+before the break; the window scan: the positions), times the operations
+per pair counted from the kernel source, over the card's float32 rate,
+against the bytes each input read once and each output written once
+over its memory rate; the larger names what bounds it.
 A kernel's time is the median of 5 CUDA-event timings of 10
 back-to-back launches, divided by 10, so it holds no host cost of a call.
 Every chain row names its design and gives `rows`, the longest read's
 valid rows in the timed input, and `us_per_row` (ms x 1000 / rows, the
-row walk's step latency); the short-read and lane rows also time the
-previous design, the warp-per-read template, on the same inputs
-(prev_design_ms).
+row walk's step latency); the short-read, lane and pruned rows also time
+the previous design, the warp-per-read template, on the same inputs
+(prev_design_ms), and the window-scan rows the sequential design.
 
 Exits non-zero, printing no result, when any phase fails or CUDA is
 unavailable.
@@ -126,6 +134,36 @@ def _time_ms(fn, reps: int = 5, warm: bool = True, inner: int = 1) -> float:
 KERNEL_INNER = 10
 
 
+# cycles the card spins before a _device_ms timing (about 30 ms on an
+# H100), long enough for the host to queue every call behind it
+SPIN_CYCLES = 50_000_000
+
+
+def _device_ms(fn, reps: int = 5, inner: int = KERNEL_INNER) -> float:
+    """The card's time for one call of fn(): the median of `reps`
+    CUDA-event timings of `inner` back-to-back calls, each queued behind
+    a spin kernel (torch.cuda._sleep) while the host issues them, so the
+    card runs the calls back to back and the host's cost of a call drops
+    out. Where the host takes longer to issue a call than the card to run
+    it, _time_ms measures the host, and this the card."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        t0.record()
+        for _ in range(inner):
+            fn()
+        t1.record()
+        t1.synchronize()
+        times.append(t0.elapsed_time(t1) / inner)
+    return _median(times)
+
+
 # The card's peaks (H100 SXM data sheet, dense, at 700 W): float32 outside
 # the tensor cores, and device memory
 PEAK_F32_OPS = 67e12
@@ -138,10 +176,11 @@ PEAK_BYTES = 3.35e12
 # truncation, the penalty subtract, the add of f[j], and the compare and
 # two selects of the best: 29.
 CHAIN_OPS_PER_PAIR = 29
-# Operations of one position's step in csrc/window_scan.cu outside the
-# data-dependent rescan: the validity select, the ring write (two), the
-# l compares (two), the minimum compare, its update (three selects), the
-# slot compare and the slot advance (two): 12.
+# Operations of one position's step of the reference's recurrence (the
+# sequential design in csrc/window_scan.cu) outside the data-dependent
+# rescan: the validity select, the ring write (two), the l compares (two),
+# the minimum compare, its update (three selects), the slot compare and
+# the slot advance (two): 12.
 SCAN_OPS_PER_POSITION = 12
 LIBRARY_NOTE = "no single PyTorch call computes a sequential chaining DP or a window scan"
 
@@ -163,20 +202,28 @@ def _valid_rows(grp):
     return torch.where(grp != -1, pos, 0).amax(dim=1)
 
 
-def _chain_bound(args, window: int, n_out: int, tab_len: int):
+def _chain_bound(args, scal, window: int, n_out: int, tab, skip):
     """(bound ms, bound_by, pairs) of one chain-DP call: the pairs
     sum_b sum_{i < n_b} min(i, H), with n_b one past read b's last valid
-    anchor (the rows the kernel walks), times CHAIN_OPS_PER_PAIR; the
-    bytes of 4 (B, A) int32 inputs, n_out outputs and the log2 table."""
+    anchor (the rows the kernel walks), or with max_chain_skip only the
+    pairs the walk visits before its break (chain_ops.scanned_pairs on
+    the plain DP's own f and prev), times CHAIN_OPS_PER_PAIR; the bytes of
+    4 (B, A) int32 inputs, n_out outputs and the log2 table."""
     import torch
+
+    from minimap2_rs_torch.ops import chain_ops
 
     grp = args[0]
     B, A = grp.shape
     H = min(window, A)
-    n = _valid_rows(grp)
-    pairs = int(torch.where(n <= H + 1, n * (n - 1) // 2,
-                            H * (H + 1) // 2 + (n - 1 - H) * H).sum())
-    nbytes = (4 + n_out) * B * A * 4 + tab_len * 4
+    if skip is None:
+        n = _valid_rows(grp)
+        pairs = int(torch.where(n <= H + 1, n * (n - 1) // 2,
+                                H * (H + 1) // 2 + (n - 1 - H) * H).sum())
+    else:
+        f, prev = chain_ops.chain_dp_batch_ref(*args, scal, window, tab, max_chain_skip=skip)
+        pairs = int(chain_ops.scanned_pairs(*args, f, prev, scal, window, tab, skip).sum())
+    nbytes = (4 + n_out) * B * A * 4 + tab.shape[0] * 4
     return (*_bound(pairs * CHAIN_OPS_PER_PAIR, nbytes), pairs)
 
 
@@ -236,30 +283,35 @@ def _kernel_vs_plain(entries, tab, aux: bool, window=None, plain_reps: int = 5):
 
 
 def _scan_vs_plain(entries, max_rows=None):
-    """The window-scan kernel against its plain version on every captured
-    input (entries: [(args, w, k)], each cut to its first max_rows rows):
-    torch.equal, then both times (ms, CUDA events; the kernel the median
-    of 5, the plain loop one run) on the largest entry."""
+    """The window-scan kernel, and its sequential design, against the
+    plain version on every captured input (entries: [(args, w, k)], each
+    cut to its first max_rows rows): torch.equal, then the times (ms,
+    CUDA events; the kernels the median of 5, the plain loop one run) on
+    the largest entry: (kernel, its device time (_device_ms), sequential
+    design, plain, its inputs)."""
     import torch
 
-    from minimap2_rs_torch.kernels.window_scan import window_scan
+    from minimap2_rs_torch.kernels.window_scan import sequential_scan, window_scan
     from minimap2_rs_torch.ops.sketch_scan import _window_scan_ref
 
     cut = [(tuple(a[:max_rows].contiguous() for a in args), w, k)
            for args, w, k in entries]
     for args, w, k in cut:
-        got = window_scan(*args[:4], w, k, args[4])
         want = _window_scan_ref(*args[:4], w, k, args[4])
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            bad = (got != want).nonzero()[:5].tolist()
-            raise AssertionError(f"window_scan != plain (L={args[0].shape[1]}) at {bad}")
+        for fn in (window_scan, sequential_scan):
+            got = fn(*args[:4], w, k, args[4])
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                bad = (got != want).nonzero()[:5].tolist()
+                raise AssertionError(f"{fn.__name__} != plain (L={args[0].shape[1]}) at {bad}")
     args, w, k = max(cut, key=lambda e: e[0][0].numel())
     ms = _time_ms(lambda: window_scan(*args[:4], w, k, args[4]), inner=KERNEL_INNER)
+    device_ms = _device_ms(lambda: window_scan(*args[:4], w, k, args[4]))
+    prev_ms = _time_ms(lambda: sequential_scan(*args[:4], w, k, args[4]), inner=KERNEL_INNER)
     # the comparison above has just run the plain loop on these inputs
     plain_ms = _time_ms(lambda: _window_scan_ref(*args[:4], w, k, args[4]), reps=1,
                         warm=False)
-    return ms, plain_ms, args
+    return ms, device_ms, prev_ms, plain_ms, args
 
 
 @contextlib.contextmanager
@@ -357,10 +409,70 @@ def _synthetic_ties(B, A):
     return cols
 
 
+def _synthetic_decoys(rng, B, n_blocks, boosters=0, size=(28, 40), A=None):
+    """Rows of [backbone, decoys, backbone, ...] blocks: clusters of `size`
+    decoys on a far diagonal inside the band are admissible but never
+    beat, and the backbone's marks make them count as skips; each backbone
+    anchor's predecessor is the previous one, a chunk or more back.
+    `boosters` on-diagonal beats a cluster, at random places. Padding to
+    A."""
+    import numpy as np
+
+    rows = []
+    for _b in range(B):
+        rp, qp, r0 = [], [], 1000
+        for _t in range(n_blocks):
+            n_decoy = int(rng.integers(*size))
+            diag = int(rng.integers(420, 480))
+            rp += [r0] + [r0 + 10 + u for u in range(n_decoy)]
+            qp += [r0] + [r0 + 10 + u + diag for u in range(n_decoy)]
+            for u in rng.choice(n_decoy, size=boosters, replace=False):
+                rp.append(r0 + 10 + int(u))
+                qp.append(r0 + 10 + int(u))
+            r0 += 10 + n_decoy + int(rng.integers(450, 520))
+        o = np.argsort(np.array(rp), kind="stable")
+        rows.append((np.array(rp)[o], np.array(qp)[o]))
+    A = A or max(len(r) for r, _ in rows)
+    cols = np.stack([np.full((B, A), -1, np.int64), np.zeros((B, A), np.int64),
+                     np.zeros((B, A), np.int64), np.full((B, A), 255, np.int64)])
+    for b, (rp, qp) in enumerate(rows):
+        n = min(len(rp), A)
+        cols[0, b, :n], cols[1, b, :n], cols[2, b, :n], cols[3, b, :n] = 0, rp[:n], qp[:n], 15
+    return cols
+
+
+def _synthetic_unsorted(rng, B, A):
+    """Read 0: a colinear chain whose every 10th anchor steps back one base
+    in r (dr = -1 to its predecessor, which then wins the tie with the
+    anchor before); the others colinear runs shuffled out of order."""
+    import numpy as np
+
+    cols = _synthetic_chains(rng, B, A, lambda b: A - 30 * b, step=8)
+    for b in range(1, B):
+        n = A - 30 * b
+        cols[:, b, :n] = cols[:, b, rng.permutation(n)]
+    cols[0, 0], cols[3, 0] = 0, 15
+    cols[1, 0] = 1000 + np.cumsum(np.where(np.arange(A) % 10 == 9, -1, 10))
+    cols[2, 0] = 1000 + 10 * np.arange(A)
+    return cols
+
+
+def _synthetic_interleaved(n_chains, A):
+    """One read of n_chains colinear chains on diagonals 1000 apart (no
+    pair across them admissible), interleaved so that each anchor's only
+    predecessor lies n_chains slots back."""
+    import numpy as np
+
+    t, c = np.divmod(np.arange(A), n_chains)
+    r = 1000 + 40 * t + c
+    return np.stack([np.zeros((1, A), np.int64), r[None], (r + 1000 * c)[None],
+                     np.full((1, A), 15, np.int64)])
+
+
 def _synthetic_cases():
-    """{design: [(name, cols, scalars, lite window, general window)]}: the
-    edge cases no mapping phase guarantees, for the lane and the
-    short-read kernels."""
+    """{design: [(name, cols, scalars, lite window, general window,
+    max_chain_skips)]}: the edge cases no mapping phase guarantees, for
+    the lane, the short-read and the pruned kernels."""
     import numpy as np
 
     from minimap2_rs_torch.config import ChainParams
@@ -377,37 +489,64 @@ def _synthetic_cases():
         ChainParams.defaults_for_k(15, bw=20000, chn_pen_gap=0.0, chn_pen_skip=0.001))
     rng = np.random.default_rng(59)
     chains = lambda *a, **k: _synthetic_chains(rng, *a, **k)
+    exact = (None,)
     lane = [
-        ("n = 0", chains(4, 1100, lambda b: 0), scal, 1024, 5000),
-        ("n < H", chains(8, 4480, lambda b: int(rng.integers(1, 1000))), scal, 1024, 4480),
+        ("n = 0", chains(4, 1100, lambda b: 0), scal, 1024, 5000, exact),
+        ("n < H", chains(8, 4480, lambda b: int(rng.integers(1, 1000))), scal, 1024, 4480,
+         exact),
         ("A = 2077, not a multiple of 256",
          chains(8, 2077, lambda b: 2077 if b % 2 else int(rng.integers(1000, 2077))),
-         scal, 1024, 5000),
-        ("forced ties (A = 1100)", _synthetic_ties(4, 1100), tie_scal, 1024, 5000),
+         scal, 1024, 5000, exact),
+        ("forced ties (A = 1100)", _synthetic_ties(4, 1100), tie_scal, 1024, 5000, exact),
         ("largest general shape (A = 11904, H = 5000)",
-         chains(4, 11904, lambda b: 11904 - 700 * b), scal, 5000, 5000),
+         chains(4, 11904, lambda b: 11904 - 700 * b), scal, 5000, 5000, exact),
     ]
     rng = np.random.default_rng(61)
     ns = [0, 20, 256, 255, 100, 31, 200, 1]  # an empty read, n < 32, n = A
     top = 2**31 - 1
     short = [
-        ("n = 0, n < 32, n = A (A = 256)", chains(8, 256, lambda b: ns[b]), scal, 256, 5000),
+        ("n = 0, n < 32, n = A (A = 256)", chains(8, 256, lambda b: ns[b]), scal, 256, 5000,
+         exact),
         ("window 64 (A = 256)", chains(8, 256, lambda b: int(rng.integers(1, 257))), scal,
-         64, 64),
-        ("A = 384", chains(8, 384, lambda b: 384 - 40 * b), scal, 384, 5000),
-        ("A = 768, the 4x tier", chains(8, 768, lambda b: 768 - 90 * b), scal, 768, 5000),
-        ("A = 768, window 128", chains(8, 768, lambda b: 768 - 90 * b), scal, 128, 128),
-        ("forced ties (A = 256)", _synthetic_ties(4, 256), tie_scal, 256, 5000),
+         64, 64, exact),
+        ("A = 384", chains(8, 384, lambda b: 384 - 40 * b), scal, 384, 5000, exact),
+        ("A = 768, the 4x tier", chains(8, 768, lambda b: 768 - 90 * b), scal, 768, 5000,
+         exact),
+        ("A = 768, window 128", chains(8, 768, lambda b: 768 - 90 * b), scal, 128, 128,
+         exact),
+        ("forced ties (A = 256)", _synthetic_ties(4, 256), tie_scal, 256, 5000, exact),
         ("positions near 2^31 - 1 (A = 256)",
          chains(8, 256, lambda b: 256, r_off=top - 260_000, q_off=top - 30_000), scal,
-         256, 5000),
+         256, 5000, exact),
         ("pen_skip != 0 (A = 256)", chains(8, 256, lambda b: 256 - 20 * b), skip_scal,
-         256, 5000),
+         256, 5000, exact),
         ("bw 20000, dd past the staged table (A = 256)",
          chains(8, 256, lambda b: 256 - 20 * b, step=3000, jitter=2000), wide_scal, 256,
-         5000),
+         5000, exact),
     ]
-    return {"lane": lane, "short": short}
+    rng = np.random.default_rng(67)
+    skips = (0, 1, 25)
+    smem = [
+        ("decoys, marks a chunk or more back", _synthetic_decoys(rng, 8, 5), scal, 5000,
+         5000, skips),
+        ("decoys with boosters, window 64", _synthetic_decoys(rng, 8, 5, boosters=1),
+         scal, 64, 64, skips),
+        ("long decoy clusters, two boosters each (the counter carried across chunks)",
+         _synthetic_decoys(np.random.default_rng(0), 4, 5, boosters=2, size=(50, 70)), scal,
+         5000, 5000, skips),
+        ("decoys, a chunk without a beat", _synthetic_decoys(np.random.default_rng(1), 4, 5),
+         scal, 5000, 5000, (31,)),
+        ("interleaved chains, each predecessor at its window's edge (window 8)",
+         _synthetic_interleaved(8, 256), scal, 8, 8, skips),
+        ("colinear runs, n = 0, n < 32, n = A (A = 256)", chains(8, 256, lambda b: ns[b]),
+         scal, 256, 5000, skips),
+        ("forced ties (A = 256)", _synthetic_ties(4, 256), tie_scal, 256, 5000, skips),
+        ("anchors out of reference order, dr < 0 (A = 128)", _synthetic_unsorted(rng, 4, 128),
+         scal, 128, 5000, skips),
+        ("A = 1152, B = 1", _synthetic_decoys(rng, 1, 40, boosters=1, A=1152), scal,
+         5000, 5000, skips),
+    ]
+    return {"lane": lane, "short": short, "smem": smem}
 
 
 def _synthetic_phase(tab_default, want_design, cases):
@@ -421,30 +560,35 @@ def _synthetic_phase(tab_default, want_design, cases):
     from minimap2_rs_torch.ops import chain_ops
 
     dev = torch.device("cuda")
-    for name, cols, sc, win_lite, win_gen in cases:
+    smem_bytes = {"lane": lambda A, H, aux: kchain.lane_ring_bytes(H, aux),
+                  "short": lambda A, H, aux: kchain.short_block_bytes(A, aux),
+                  "smem": lambda A, H, aux: kchain.prune_block_bytes(A, aux)}[want_design]
+    for name, cols, sc, win_lite, win_gen, skips in cases:
         args = tuple(torch.from_numpy(c.astype(np.uint32).view(np.int32).copy()).to(dev)
                      for c in cols)
         tab = (tab_default if tab_default.shape[0] > sc.bw
                else chain_ops.log2_table(sc.bw + 1).to(dev))
         A = args[0].shape[1]
         for aux, win in ((True, win_lite), (False, win_gen)):
-            if kchain.design(A, win, aux, None) != want_design:
-                raise AssertionError(f"synthetic {name}: not a {want_design}-design shape")
             fn = kchain.chain_dp_aux_batch if aux else kchain.chain_dp_batch
             ref = chain_ops.chain_dp_aux_batch_ref if aux else chain_ops.chain_dp_batch_ref
-            got, want = fn(*args, sc, win, tab), ref(*args, sc, win, tab)
-            torch.cuda.synchronize()
-            for g, w in zip(got, want):
-                if not torch.equal(g, w):
-                    bad = (g != w).nonzero()[:5].tolist()
-                    raise AssertionError(f"synthetic {name} (aux={aux}): {want_design} "
-                                         f"kernel != plain at {bad}")
-            n_win = int((want[1] >= (2 if aux else 0)).sum())
-            smem = (kchain.lane_ring_bytes(min(win, A), aux) if want_design == "lane"
-                    else kchain.short_block_bytes(A, aux))
-            print(f"synthetic {want_design} {'aux' if aux else '(f, prev)'} [{name}]: "
-                  f"(B, A) = {tuple(args[0].shape)}, H = {min(win, A)}, shared memory "
-                  f"{smem} B: equal to the plain version ({n_win} chained rows)")
+            for skip in skips:
+                if kchain.design(A, win, aux, skip) != want_design:
+                    raise AssertionError(f"synthetic {name}: not a {want_design}-design shape")
+                got = fn(*args, sc, win, tab, skip)
+                want = ref(*args, sc, win, tab, max_chain_skip=skip)
+                torch.cuda.synchronize()
+                for g, w in zip(got, want):
+                    if not torch.equal(g, w):
+                        bad = (g != w).nonzero()[:5].tolist()
+                        raise AssertionError(f"synthetic {name} (aux={aux}, skip={skip}): "
+                                             f"{want_design} kernel != plain at {bad}")
+                n_win = int((want[1] >= (2 if aux else 0)).sum())
+                print(f"synthetic {want_design} {'aux' if aux else '(f, prev)'} [{name}"
+                      f"{'' if skip is None else f', max_chain_skip {skip}'}]: (B, A) = "
+                      f"{tuple(args[0].shape)}, H = {min(win, A)}, shared memory "
+                      f"{smem_bytes(A, min(win, A), aux)} B: equal to the plain version "
+                      f"({n_win} chained rows)")
 
 
 def _parity(tag, idx, sample, lines, cp, mp):
@@ -887,7 +1031,7 @@ def main() -> int:
         err, ms, plain_ms, (args, scal, win, skip) = _kernel_vs_plain(
             entries, tab, aux, window, plain_reps)
         timed = tuple(args[0].shape)
-        bound_ms, bound_by, pairs = _chain_bound(args, win, 4 if aux else 2, tab.shape[0])
+        bound_ms, bound_by, pairs = _chain_bound(args, scal, win, 4 if aux else 2, tab, skip)
         n_launch = total.get(held, 0)
         design = kchain.design(timed[1], win, aux, skip)
         n_rows = int(_valid_rows(args[0]).max())
@@ -896,14 +1040,19 @@ def main() -> int:
         if design != "template":
             # the previous design on the same inputs, in the same call
             extra["prev_design_ms"] = _time_ms(
-                lambda: kchain.template_batch(aux, *args, scal, win, tab), inner=KERNEL_INNER)
+                lambda: kchain.template_batch(aux, *args, scal, win, tab, skip),
+                inner=KERNEL_INNER)
         if design == "lane":
             extra["ring_bytes"] = kchain.lane_ring_bytes(min(win, timed[1]), aux)
         elif design == "short":
             extra["smem_bytes"] = kchain.short_block_bytes(timed[1], aux)
+        elif design == "smem":
+            extra["smem_bytes"] = kchain.prune_block_bytes(timed[1], aux)
+            fn = kchain.chain_dp_aux_batch if aux else kchain.chain_dp_batch
+            extra["device_ms"] = _device_ms(lambda: fn(*args, scal, win, tab, skip))
         print(f"{name}: (B, A), bw, window = {shapes}, all equal; timed at "
               f"{timed}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by}; {pairs} pairs x {CHAIN_OPS_PER_PAIR} ops)"
+              f"{bound_ms:.6f} ms ({bound_by}; {pairs} pairs x {CHAIN_OPS_PER_PAIR} ops)"
               + "".join(f", {k} {v:.4f}" if isinstance(v, float) else f", {k} {v}"
                         for k, v in extra.items())
               + f"; launches x (ms - bound) = {n_launch * (ms - bound_ms):.4f} ms")
@@ -922,12 +1071,13 @@ def main() -> int:
     for cls, max_rows in (("short", None), ("long", 8)):
         key = f"window_scan/{cls}"
         entries = _launched(cap_14, key)
-        ms, plain_ms, args = _scan_vs_plain(entries, max_rows)
+        ms, device_ms, prev_ms, plain_ms, args = _scan_vs_plain(entries, max_rows)
         timed = tuple(args[0].shape)
         bound_ms, bound_by = _scan_bound(args)
         shapes = [(tuple(a[0][:max_rows].shape), w, k) for a, w, k in entries]
-        print(f"window_scan ({cls}): (B, L), w, k = {shapes}, all equal; timed at "
-              f"{timed}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        print(f"window_scan ({cls}): (B, L), w, k = {shapes}, all equal (both designs); "
+              f"timed at {timed}: kernel {ms:.4f} ms (device time {device_ms:.4f} ms), "
+              f"prev_design_ms (sequential) {prev_ms:.4f}, plain {plain_ms:.4f} ms, bound "
               f"{bound_ms:.6f} ms ({bound_by}); launches x (ms - bound) = "
               f"{total.get(key, 0) * (ms - bound_ms):.4f} ms")
         kernels.append(dict(
@@ -936,11 +1086,12 @@ def main() -> int:
             replaces="minimap2_rs_tpu/ops/sketch_scan.py:110",
             launches=total.get(key, 0), max_abs_err=0, ms=ms, plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-            library_note=LIBRARY_NOTE,
+            library_note=LIBRARY_NOTE, design="tile", prev_design_ms=prev_ms,
+            device_ms=device_ms,
             shape=cls, timed_at=timed, on_main_path=total.get(key, 0) > 0,
         ))
 
-    # ---- the lane and short-read kernels on synthetic edge cases ---------
+    # ---- the lane, short-read and pruned kernels on synthetic edge cases --
     t0 = time.perf_counter()
     for want_design, cases in _synthetic_cases().items():
         _synthetic_phase(tab, want_design, cases)

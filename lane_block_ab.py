@@ -41,9 +41,10 @@ def with_constants(src: str, **consts) -> str:
 
 def build_variants(out: Path, sources: dict, design: str):
     """One library per {name: source of chain_dp.cu}, built in parallel,
-    with the two entry points of `design` ("lane" or "short") bound;
-    prints each build's ptxas registers, shared memory and spills of that
-    design's kernels. Returns {name: ctypes.CDLL}."""
+    with the two entry points of `design` ("lane", "short" or
+    "prune_smem") bound; prints each build's ptxas registers, shared
+    memory and spills of that design's kernels. Returns {name:
+    ctypes.CDLL}."""
     from minimap2_rs_torch.kernels import build as kbuild
 
     procs = {}
@@ -62,13 +63,14 @@ def build_variants(out: Path, sources: dict, design: str):
         lines = log.splitlines()
         print(f"{name}: ptxas")
         for k, l in enumerate(lines):
-            if "Compiling entry" in l and f"_{design}_kernel" in l:
+            if "Compiling entry" in l and f"_{design.split('_')[0]}_kernel" in l:
                 print("  ", " | ".join(x.strip() for x in lines[k:k + 4]))
         lib = ctypes.CDLL(str(out / f"v{i}.so"))
         for aux in (True, False):
             fn = getattr(lib, entry_name(aux, design))
             fn.restype = ci
-            fn.argtypes = [vp] * 4 + [vp] * (4 if aux else 2) + [vp, ci] + [ci] * 6 + [cf, cf, vp]
+            fn.argtypes = ([vp] * 4 + [vp] * (4 if aux else 2) + [vp, ci] + [ci] * 6 + [cf, cf]
+                           + [ci] * design.startswith("prune") + [vp])
         libs[name] = lib
     return libs
 
@@ -77,10 +79,11 @@ def entry_name(aux: bool, design: str) -> str:
     return f"mm2t_chain_dp{'_aux' if aux else ''}_{design}"
 
 
-def call_entry(lib, design, aux, args, scal, H, tab, outs=None):
+def call_entry(lib, design, aux, args, scal, H, tab, outs=None, skip=None):
     """One launch of `design`'s entry point of `lib` on CUDA tensors, into
     `outs` (allocated here when None, which a short kernel's timing would
-    then hold); the outputs."""
+    then hold), with max_chain_skip `skip` for a pruned design; the
+    outputs."""
     import torch
 
     B, A = args[0].shape
@@ -90,7 +93,8 @@ def call_entry(lib, design, aux, args, scal, H, tab, outs=None):
     fn = getattr(lib, entry_name(aux, design))
     err = fn(*[a.data_ptr() for a in args], *[o.data_ptr() for o in outs], tab.data_ptr(),
              tab.shape[0], B, A, min(H, A), scal.max_dist_x, scal.max_dist_y, scal.bw,
-             scal.chn_pen_gap, scal.chn_pen_skip, torch.cuda.current_stream().cuda_stream)
+             scal.chn_pen_gap, scal.chn_pen_skip, *(() if skip is None else (skip,)),
+             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{design} launch refused: cudaError {err}")
     return outs
@@ -156,8 +160,8 @@ def main() -> int:
                         inner=cs.KERNEL_INNER))
             tmpl = cs._time_ms(lambda: kchain.template_batch(aux, *args, scal, H, tab),
                                inner=cs.KERNEL_INNER)
-            bound_ms, bound_by, _pairs = cs._chain_bound(args, H, 4 if aux else 2,
-                                                         tab.shape[0])
+            bound_ms, bound_by, _pairs = cs._chain_bound(args, scal, H, 4 if aux else 2,
+                                                         tab, None)
             print(f"{name} aux={aux} H={min(H, A)}: "
                   + ", ".join(f"T={T} {v[0]:.4f}/{v[1]:.4f} ms" for T, v in res.items())
                   + f"; template {tmpl:.4f} ms; bound {bound_ms:.4f} ms ({bound_by})",

@@ -1,10 +1,10 @@
 // Colinear chaining DP for Hopper: two variants, each in three designs,
-// and a pruned instance of each.
+// and a pruned instance of each in two.
 //
 // Replaces all six Pallas kernels of minimap2_rs_tpu/ops/chain_pallas.py.
 // Their split into static-sublane, dynamic-sublane and lane layouts
 // existed only for the TPU's VMEM and (8, 128) tiling; here a runtime
-// window H serves every shape, and the shape picks one of three designs
+// window H serves every shape, and the shape picks one of four designs
 // (kernels/chain_dp.py decides, by A, H and the pruning, before the
 // launch):
 //
@@ -12,8 +12,10 @@
 //     warp per read with the whole read in shared memory;
 //   lane kernel (chain_dp_lane_kernel): A >= 1024, exact window whose
 //     ring fits a block; a block per read, the window in shared memory;
-//   warp-per-read template (chain_dp_kernel): the pruned instances, and
-//     any exact-window shape whose blocks would not fit shared memory.
+//   pruned kernel (chain_dp_prune_kernel): the pruned instances whose read
+//     fits a block; a warp per read with the read in shared memory;
+//   warp-per-read template (chain_dp_kernel): any shape whose blocks
+//     would not fit shared memory, pruned or not.
 //
 //   kAux = true -> (f, cnt, sq, sr), for the lite path:
 //     _static_aux_kernel     (A < 1024, full window):      mm2t_chain_dp_aux_short
@@ -23,9 +25,12 @@
 //     _static_kernel         (A < 1024, full window):      mm2t_chain_dp_short
 //     _chain_kernel          (A < 1024, truncated window): mm2t_chain_dp_short
 //     _chain_kernel_lane     (A >= 1024):                  mm2t_chain_dp_lane
-//   The template's entries, mm2t_chain_dp_aux and mm2t_chain_dp, take any
-//   shape; kernels/chain_dp.template_batch keeps them callable so a run
-//   can time the previous design on the same inputs.
+//   pruned (no Pallas counterpart): mm2t_chain_dp_aux_prune_smem and
+//     mm2t_chain_dp_prune_smem.
+//   The template's entries, mm2t_chain_dp_aux, mm2t_chain_dp and their
+//   pruned instances mm2t_chain_dp_aux_prune and mm2t_chain_dp_prune, take
+//   any shape; kernels/chain_dp.template_batch keeps them callable so a
+//   run can time the previous design on the same inputs.
 //
 // Contract (chain_ops.chain_dp_batch / chain_dp_aux_batch in the JAX
 // package): for anchor i of read b, the best f[j] + comput_sc(i, j) over
@@ -34,12 +39,11 @@
 // sq/sr = own coordinates. Otherwise prev = the chosen j, and cnt, sq, sr
 // follow it (cnt + 1, its chain start).
 //
-// Design of the warp-per-read template (chain_dp_kernel: the pruned
-// instances, and shapes whose blocks would not fit): one warp per read.
-// The DP is sequential in i, so the warp walks i in order; its 32 lanes
-// stride over the j window, each keeping
-// its best (score, j), and a shuffle reduction picks the max score and
-// then the largest j. Lane 0 writes row i; __syncwarp() orders that
+// Design of the warp-per-read template (chain_dp_kernel: shapes whose
+// blocks would not fit): one warp per read. The DP is sequential in i, so
+// the warp walks i in order; its 32 lanes stride over the j window, each
+// keeping its best (score, j), and a shuffle reduction picks the max score
+// and then the largest j. Lane 0 writes row i; __syncwarp() orders that
 // write before row i+1 reads it. The window is read from global memory
 // (it stays L1/L2-resident). The (f, prev) variant has no dependent load
 // after the reduction: prev is the index itself, where the aux variant
@@ -48,42 +52,42 @@
 // shuffle and, for aux, the dependent load of the chosen predecessor's
 // statistics), not FLOPs. At the lane shapes it ran 128 warps, one per
 // SM, at about 2% of the card's bound, and at the short-read shape about
-// 1.4 us a row (PERF.md), hence the lane and short-read kernels below,
-// whose headers give their designs.
+// 1.4 us a row (PERF.md), hence the lane, short-read and pruned kernels
+// below, whose headers give their designs.
 //
 // Exactness: the penalty is (int)(pen_gap*dd + pen_skip*dg
 // + 0.5f*log2(dd+1)) in f32 with no FMA contraction (__fmul_rn /
 // __fadd_rn, and -fmad=false), log2 read from a host-built table of the
 // oracle's mg_log2 (oracle/lchain.py:51-80). Differences are taken in
-// 64-bit integers by the template and the lane kernel, in 32-bit ones by
-// the short-read kernel (its header says why that is exact). Rows after
-// a read's last valid anchor (grp == -1 padding, which the mapper places
-// at the end with no admissible predecessor) take the base case
-// directly, as the Pallas kernels' padding epilogue does
+// 64-bit integers by the template, the lane and the pruned kernel, in
+// 32-bit ones by the short-read kernel (its header says why that is
+// exact). Rows after a read's last valid anchor (grp == -1 padding, which
+// the mapper places at the end with no admissible predecessor) take the
+// base case directly, as the Pallas kernels' padding epilogue does
 // (chain_pallas.py:274-285).
 //
-// The pruned instances (kPrune; mm2t_chain_dp_prune and
-// mm2t_chain_dp_aux_prune) replicate the reference's order-dependent
-// max_chain_skip early break (oracle/lchain.py:106-129), which the JAX
-// package runs only in its lax.scan DP (ops/chain_ops.py:80-137 with
-// max_chain_skip, under MM2T_SKIP_PRUNE). They have no Pallas
-// counterpart. The walk is newest-first: a beat (sc > max_f, seeded with
-// span[i]) decrements the skip counter, floored at 0; a non-beat j with
-// t[j] == i increments it and the walk breaks past max_skip; every
-// scanned in-band j with prev[j] >= 0 then sets t[prev[j]] = i. The
-// lanes score the window 32 slots at a time, newest first, and stage the
-// scores and prev values in shared memory; lane 0 walks the admissible
-// ones serially (a ballot mask skips the rest) and the warp stops at the
-// break. t is a per-read scratch of A ints, set to -1 once: it stores i,
-// so it needs no reset between rows. The aux instance keeps prev in a
-// per-read scratch as well, for the marks.
+// The pruned instances (kPrune in the template, and the pruned kernel)
+// replicate the reference's order-dependent max_chain_skip early break
+// (oracle/lchain.py:106-129), which the JAX package runs only in its
+// lax.scan DP (ops/chain_ops.py:80-137 with max_chain_skip, under
+// MM2T_SKIP_PRUNE). They have no Pallas counterpart. The walk is
+// newest-first: a beat (sc > max_f, seeded with span[i]) decrements the
+// skip counter, floored at 0; a non-beat j with t[j] == i increments it
+// and the walk breaks past max_skip; every scanned in-band j with
+// prev[j] >= 0 then sets t[prev[j]] = i. In the template the lanes score
+// the window 32 slots at a time, newest first, and stage the scores and
+// prev values in shared memory; lane 0 walks the admissible ones serially
+// (a ballot mask skips the rest) and the warp stops at the break. t is a
+// per-read scratch of A ints, set to -1 once: it stores i, so it needs no
+// reset between rows. The aux instance keeps prev in a per-read scratch
+// as well, for the marks. The pruned kernel's header gives its design.
 //
 // ptxas -v for sm_90a (build log of an H100 run): the template as
 // <kAux, kPrune> <false, false> 42 registers, <true, false> 48,
 // <false, true> 32 and <true, true> 40 (both with 1 KB of shared
 // memory); the lane kernel 44 and 48; the short-read kernel's eight
-// <kAux, kSkip, kWide> instances 40 to 56; all 0 bytes of stack and no
-// spill stores or loads.
+// <kAux, kSkip, kWide> instances 40 to 56; the pruned kernel 39 ((f, prev)) and 48 (aux);
+// all 0 bytes of stack and no spill stores or loads.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -911,6 +915,187 @@ int launch_short(const void* grp, const void* rpos, const void* qpos,
             mdx, mdy, bw, pen_gap, pen_skip, stream);
 }
 
+// ---- the pruned kernel (max_chain_skip, the read in shared memory) -----
+//
+// One warp (one block) per read. The read's four input columns, one int4 a
+// slot, its f, prev and marks t, and for aux its cnt, sq and sr live in
+// dynamic shared memory; the outputs are written, coalesced, after the
+// walk. t stores i, so it needs no reset between rows.
+//
+// Row i walks its window [max(0, i-H), i) newest-first in chunks of 32
+// slots, lane u taking j = top - u, and replaces the template's serial
+// walk by warp scans:
+//   1. each lane scores its slot (comput_sc, + f[j]; ok when admissible);
+//   2. every ok lane with prev[j] >= 0 sets t[prev[j]] = i, then
+//      __syncwarp. As prev[j] < j a mark reaches only slots the walk
+//      visits after j, and marks set from slots past the break land past
+//      it too, where nothing reads them (_skip_prune_mask's argument);
+//   3. an ok lane is marked when t[j] == i;
+//   4. beat = ok && sc > the running max before the lane (a shuffle
+//      max-scan, seeded with the carried best, span[i] at first);
+//   5. the skip counter is the max-plus composition of n -> max(n + a, b)
+//      across the lanes, newest first, seeded with the carried counter:
+//      a = +1 on a marked non-beat, a = -1 with b = 0 on a beat (the
+//      floored decrement), else the identity; a shuffle scan of (a, b);
+//   6. the break is the first lane whose counter passes max_skip (a
+//      ballot); the chunk's winner is the newest lane before it that
+//      holds the chunk's max, if that beats the carried best;
+//   7. (best, jb, counter) carry into the next chunk; the row stops at
+//      the break or the window's end.
+// Two exact shortcuts (skip a chunk with no ok lane; count a chunk that
+// cannot beat by a popcount) cost two warp votes a chunk: 10-12% slower
+// on the CLI's shape, 3-4% faster at skipprune (prune_ab.py, PERF.md),
+// so the kernel does without them.
+// Every lane computes the row's outputs and writes them to shared memory
+// itself (the same values), so each later read of f, prev, cnt, sq or sr
+// is of the lane's own write; only the marks cross lanes, behind the
+// __syncwarp of step 2.
+//
+// Admissibility is comput_sc's, with 64-bit differences and dr != 0, as in
+// the plain version: the kernel depends on no anchor order. What bounds
+// it: the latency of each chunk's chain (a slot load, the scoring, two
+// warp scans of five shuffle steps, two ballots and a reduction); a row
+// of the reference's default max_chain_skip mostly breaks within one or
+// two chunks.
+template <bool kAux>
+__global__ void __launch_bounds__(32) chain_dp_prune_kernel(
+    const int* __restrict__ grp, const int* __restrict__ rpos,
+    const int* __restrict__ qpos, const int* __restrict__ span,
+    int* __restrict__ f, int* __restrict__ o1, int* __restrict__ o2,
+    int* __restrict__ o3, const float* __restrict__ log2tab, int tab_len,
+    int A, int H, int mdx, int mdy, int bw, float pen_gap, float pen_skip,
+    int max_skip) {
+  extern __shared__ int4 s_prune[];
+  int4* s_in = s_prune;
+  int* s_f = reinterpret_cast<int*>(s_prune + A);
+  int* s_pv = s_f + A;
+  int* s_t = s_pv + A;
+  int* s_c = kAux ? s_t + A : nullptr;
+  int* s_sq = kAux ? s_t + 2 * A : nullptr;
+  int* s_sr = kAux ? s_t + 3 * A : nullptr;
+
+  const int lane = threadIdx.x;
+  const size_t base = (size_t)blockIdx.x * A;
+  int last = -1;
+  for (int j = lane; j < A; j += 32) {
+    const int gj = grp[base + j];
+    s_in[j] = make_int4(gj, rpos[base + j], qpos[base + j], span[base + j]);
+    s_t[j] = -1;
+    if (gj != -1) last = j;
+  }
+  const int n = __reduce_max_sync(kFull, last) + 1;  // rows >= n: padding
+  __syncwarp();
+
+  for (int i = 0; i < n; ++i) {
+    const int4 me = s_in[i];
+    const int lo = max(0, i - H);
+    int best = me.w;  // the running max, seeded with span[i]
+    int jb = -1;
+    int skip = 0;
+    for (int top = i - 1; top >= lo; top -= 32) {
+      const int j = top - lane;
+      int sc = kNegInf;
+      bool ok = false;
+      if (j >= lo) {
+        const int4 s = s_in[j];
+        int v;
+        ok = s.x == me.x &&
+             comput_sc(me.y, me.z, s.y, s.z, s.w, log2tab, tab_len, mdx, mdy,
+                       bw, pen_gap, pen_skip, &v);
+        if (ok) {
+          sc = v + s_f[j];
+          const int p = s_pv[j];
+          if (p >= 0) s_t[p] = i;
+        }
+      }
+      __syncwarp();
+      const bool counted = ok && s_t[j] == i;  // a marked slot, unless it beats
+      // the running max before each lane: an inclusive max-scan, shifted
+      int run = sc;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int u = __shfl_up_sync(kFull, run, o);
+        if (lane >= o) run = max(run, u);
+      }
+      const int before = __shfl_up_sync(kFull, run, 1);
+      const bool beat = ok && sc > (lane == 0 ? best : max(best, before));
+      // the skip counter: (a, b) of n -> max(n + a, b), composed with the
+      // older lanes' map applied first
+      int a = beat ? -1 : (counted ? 1 : 0);
+      int bb = beat ? 0 : kNegInf;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int ua = __shfl_up_sync(kFull, a, o);
+        const int ub = __shfl_up_sync(kFull, bb, o);
+        if (lane >= o) {
+          bb = max(ub + a, bb);
+          a += ua;
+        }
+      }
+      const int counter = max(skip + a, bb);
+      const unsigned over = __ballot_sync(kFull, counter > max_skip);
+      const int brk = over ? __ffs(over) - 1 : 32;  // a marked non-beat
+      const int cand = ok && lane < brk ? sc : kNegInf;
+      const int m = __reduce_max_sync(kFull, cand);
+      if (m > best) {
+        best = m;
+        jb = top - (__ffs(__ballot_sync(kFull, cand == m)) - 1);
+      }
+      if (over) break;
+      skip = __shfl_sync(kFull, counter, 31);
+    }
+    const bool win = jb >= 0 && best > me.w;
+    s_f[i] = win ? best : me.w;
+    s_pv[i] = win ? jb : -1;
+    if (kAux) {
+      s_c[i] = win ? s_c[jb] + 1 : 1;
+      s_sq[i] = win ? s_sq[jb] : me.z;
+      s_sr[i] = win ? s_sr[jb] : me.y;
+    }
+  }
+
+  // every lane wrote every row: no barrier
+  int* fo = f + base;
+  int* co = o1 + base;
+  for (int j = lane; j < A; j += 32) {
+    const int4 s = s_in[j];
+    const bool in = j < n;
+    fo[j] = in ? s_f[j] : s.w;
+    if (kAux) {
+      co[j] = in ? s_c[j] : 1;
+      o2[base + j] = in ? s_sq[j] : s.z;
+      o3[base + j] = in ? s_sr[j] : s.y;
+    } else {
+      co[j] = in ? s_pv[j] : -1;
+    }
+  }
+}
+
+// the pruned kernel's dynamic shared memory: a slot (4 words), f, prev and
+// t, and for aux cnt, sq and sr, a row of the read
+template <bool kAux>
+size_t prune_smem_bytes(int A) {
+  return (size_t)A * (kAux ? 10 : 7) * sizeof(int);
+}
+
+template <bool kAux>
+int launch_prune(const void* grp, const void* rpos, const void* qpos,
+                 const void* span, void* f, void* o1, void* o2, void* o3,
+                 const void* log2tab, int tab_len, int B, int A, int H,
+                 int mdx, int mdy, int bw, float pen_gap, float pen_skip,
+                 int max_skip, void* stream) {
+  if (B <= 0 || A <= 0) return (int)cudaSuccess;
+  const size_t smem = prune_smem_bytes<kAux>(A);
+  // a read over the limit is refused here and raised by the caller
+  const cudaError_t e = cudaFuncSetAttribute(
+      chain_dp_prune_kernel<kAux>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  chain_dp_prune_kernel<kAux><<<B, 32, smem, (cudaStream_t)stream>>>(
+      (const int*)grp, (const int*)rpos, (const int*)qpos, (const int*)span,
+      (int*)f, (int*)o1, (int*)o2, (int*)o3, (const float*)log2tab, tab_len,
+      A, H, mdx, mdy, bw, pen_gap, pen_skip, max_skip);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Every entry point launches on `stream`, allocates nothing and does not
@@ -1012,4 +1197,28 @@ extern "C" int mm2t_chain_dp_prune(
                              nullptr, nullptr, t_scratch, log2tab, tab_len, B,
                              A, H, mdx, mdy, bw, pen_gap, pen_skip, max_skip,
                              stream);
+}
+
+// The pruned kernel with the read in shared memory: the same contracts as
+// mm2t_chain_dp_aux_prune and mm2t_chain_dp_prune, with no scratch; its
+// block of one read must fit a block's shared memory (kernels/chain_dp.py
+// picks it).
+extern "C" int mm2t_chain_dp_aux_prune_smem(
+    const void* grp, const void* rpos, const void* qpos, const void* span,
+    void* f, void* cnt, void* sq, void* sr, const void* log2tab, int tab_len,
+    int B, int A, int H, int mdx, int mdy, int bw,
+    float pen_gap, float pen_skip, int max_skip, void* stream) {
+  return launch_prune<true>(grp, rpos, qpos, span, f, cnt, sq, sr, log2tab,
+                            tab_len, B, A, H, mdx, mdy, bw, pen_gap, pen_skip,
+                            max_skip, stream);
+}
+
+extern "C" int mm2t_chain_dp_prune_smem(
+    const void* grp, const void* rpos, const void* qpos, const void* span,
+    void* f, void* prev, const void* log2tab, int tab_len,
+    int B, int A, int H, int mdx, int mdy, int bw,
+    float pen_gap, float pen_skip, int max_skip, void* stream) {
+  return launch_prune<false>(grp, rpos, qpos, span, f, prev, nullptr, nullptr,
+                             log2tab, tab_len, B, A, H, mdx, mdy, bw, pen_gap,
+                             pen_skip, max_skip, stream);
 }

@@ -1,50 +1,60 @@
-// Runs the short-read and template entry points of csrc/chain_dp.cu,
-// built against cuda_emul.h, on the CPU:
+// Runs entry points of csrc/chain_dp.cu, built against cuda_emul.h, on the
+// CPU:
 //
 //   chain_dp_emul IN OUT ENTRY...
 //
-// IN holds int32 [B, A, H, max_dist_x, max_dist_y, bw, tab_len], float32
-// [pen_gap, pen_skip], the (B, A) int32 columns grp, rpos, qpos and span,
-// then the float32 log2 table of tab_len entries. For each ENTRY (e.g.
-// mm2t_chain_dp_aux_short), in order, OUT
-// gets its int32 return code and then its (B, A) int32 outputs: four for
-// the aux entries (f, cnt, sq, sr), two for the others (f, prev).
+// IN holds int32 [B, A, H, max_dist_x, max_dist_y, bw, tab_len, max_skip],
+// float32 [pen_gap, pen_skip], the (B, A) int32 columns grp, rpos, qpos
+// and span, then the float32 log2 table of tab_len entries. For each ENTRY
+// (e.g. mm2t_chain_dp_aux_short), in order, OUT gets its int32 return code
+// and then its (B, A) int32 outputs: four for the aux entries (f, cnt, sq,
+// sr), two for the others (f, prev). The pruned entries get max_skip, and
+// the template's pruned entries their scratch as well.
 #include <cstdio>
 #include <cstring>
 #include <vector>
 
-using Entry = int (*)(const void*, const void*, const void*, const void*,
-                      void*, void*, void*, void*, const void*, int, int, int,
-                      int, int, int, int, float, float, void*);
-using EntryPrev = int (*)(const void*, const void*, const void*, const void*,
-                          void*, void*, const void*, int, int, int, int, int,
-                          int, int, float, float, void*);
+using cp = const void*;
+using vp = void*;
+#define SCALARS int, int, int, int, int, int, float, float
+using Exact2 = int (*)(cp, cp, cp, cp, vp, vp, cp, int, SCALARS, vp);
+using Exact4 = int (*)(cp, cp, cp, cp, vp, vp, vp, vp, cp, int, SCALARS, vp);
+using Prune2 = int (*)(cp, cp, cp, cp, vp, vp, cp, int, SCALARS, int, vp);
+using Prune3 = int (*)(cp, cp, cp, cp, vp, vp, vp, cp, int, SCALARS, int, vp);
+using Prune4 = int (*)(cp, cp, cp, cp, vp, vp, vp, vp, cp, int, SCALARS, int, vp);
+using Prune6 = int (*)(cp, cp, cp, cp, vp, vp, vp, vp, vp, vp, cp, int, SCALARS,
+                       int, vp);
 
-#define AUX_ENTRY(name)                                                      \
-  extern "C" int name(const void*, const void*, const void*, const void*,    \
-                      void*, void*, void*, void*, const void*, int, int, int, \
-                      int, int, int, int, float, float, void*);
-#define PREV_ENTRY(name)                                                    \
-  extern "C" int name(const void*, const void*, const void*, const void*,   \
-                      void*, void*, const void*, int, int, int, int, int, int, \
-                      int, float, float, void*);
-AUX_ENTRY(mm2t_chain_dp_aux)
-AUX_ENTRY(mm2t_chain_dp_aux_short)
-PREV_ENTRY(mm2t_chain_dp)
-PREV_ENTRY(mm2t_chain_dp_short)
+extern "C" {
+int mm2t_chain_dp_aux(cp, cp, cp, cp, vp, vp, vp, vp, cp, int, SCALARS, vp);
+int mm2t_chain_dp_aux_short(cp, cp, cp, cp, vp, vp, vp, vp, cp, int, SCALARS, vp);
+int mm2t_chain_dp(cp, cp, cp, cp, vp, vp, cp, int, SCALARS, vp);
+int mm2t_chain_dp_short(cp, cp, cp, cp, vp, vp, cp, int, SCALARS, vp);
+int mm2t_chain_dp_aux_prune(cp, cp, cp, cp, vp, vp, vp, vp, vp, vp, cp, int, SCALARS,
+                            int, vp);
+int mm2t_chain_dp_prune(cp, cp, cp, cp, vp, vp, vp, cp, int, SCALARS, int, vp);
+int mm2t_chain_dp_aux_prune_smem(cp, cp, cp, cp, vp, vp, vp, vp, cp, int, SCALARS,
+                                 int, vp);
+int mm2t_chain_dp_prune_smem(cp, cp, cp, cp, vp, vp, cp, int, SCALARS, int, vp);
+}
 
 namespace {
 
 struct Named {
   const char* name;
-  Entry aux;
-  EntryPrev prev;
+  int n_out, n_scratch;  // (B, A) outputs, then scratch arrays
+  bool prune;
+  void* fn;
 };
 const Named kEntries[] = {
-    {"mm2t_chain_dp_aux", mm2t_chain_dp_aux, nullptr},
-    {"mm2t_chain_dp_aux_short", mm2t_chain_dp_aux_short, nullptr},
-    {"mm2t_chain_dp", nullptr, mm2t_chain_dp},
-    {"mm2t_chain_dp_short", nullptr, mm2t_chain_dp_short},
+    {"mm2t_chain_dp_aux", 4, 0, false, (void*)mm2t_chain_dp_aux},
+    {"mm2t_chain_dp_aux_short", 4, 0, false, (void*)mm2t_chain_dp_aux_short},
+    {"mm2t_chain_dp", 2, 0, false, (void*)mm2t_chain_dp},
+    {"mm2t_chain_dp_short", 2, 0, false, (void*)mm2t_chain_dp_short},
+    {"mm2t_chain_dp_aux_prune", 4, 2, true, (void*)mm2t_chain_dp_aux_prune},
+    {"mm2t_chain_dp_prune", 2, 1, true, (void*)mm2t_chain_dp_prune},
+    {"mm2t_chain_dp_aux_prune_smem", 4, 0, true, (void*)mm2t_chain_dp_aux_prune_smem},
+    {"mm2t_chain_dp_prune_smem", 2, 0, true, (void*)mm2t_chain_dp_prune_smem},
 };
 
 template <class T>
@@ -61,10 +71,10 @@ int main(int argc, char** argv) {
   }
   FILE* in = std::fopen(argv[1], "rb");
   if (!in) return 2;
-  std::vector<int> hdr(7);
+  std::vector<int> hdr(8);
   std::vector<float> pens(2);
   if (!read_into(in, hdr) || !read_into(in, pens)) return 2;
-  const int B = hdr[0], A = hdr[1], H = hdr[2], tab_len = hdr[6];
+  const int B = hdr[0], A = hdr[1], H = hdr[2], tab_len = hdr[6], skip = hdr[7];
   const size_t n = (size_t)B * A;
   std::vector<std::vector<int>> cols(4, std::vector<int>(n));
   std::vector<float> tab(tab_len);
@@ -83,17 +93,45 @@ int main(int argc, char** argv) {
       std::fprintf(stderr, "unknown entry %s\n", argv[a]);
       return 2;
     }
-    std::vector<std::vector<int>> outs(e->aux ? 4 : 2, std::vector<int>(n, 0x7eadbeef));
-    const int rc = e->aux
-        ? e->aux(cols[0].data(), cols[1].data(), cols[2].data(), cols[3].data(),
-                 outs[0].data(), outs[1].data(), outs[2].data(), outs[3].data(),
-                 tab.data(), tab_len, B, A, H, hdr[3], hdr[4], hdr[5], pens[0],
-                 pens[1], nullptr)
-        : e->prev(cols[0].data(), cols[1].data(), cols[2].data(), cols[3].data(),
-                  outs[0].data(), outs[1].data(), tab.data(), tab_len, B, A, H,
-                  hdr[3], hdr[4], hdr[5], pens[0], pens[1], nullptr);
+    std::vector<std::vector<int>> o(e->n_out + e->n_scratch,
+                                    std::vector<int>(n, 0x7eadbeef));
+    const void *g = cols[0].data(), *r = cols[1].data(), *q = cols[2].data(),
+               *s = cols[3].data();
+    const float* t = tab.data();
+    const float pg = pens[0], ps = pens[1];
+    const int mdx = hdr[3], mdy = hdr[4], bw = hdr[5];
+    int rc = -1;
+    switch (10 * (e->n_out + e->n_scratch) + e->prune) {
+      case 20:
+        rc = ((Exact2)e->fn)(g, r, q, s, o[0].data(), o[1].data(), t, tab_len, B, A,
+                             H, mdx, mdy, bw, pg, ps, nullptr);
+        break;
+      case 40:
+        rc = ((Exact4)e->fn)(g, r, q, s, o[0].data(), o[1].data(), o[2].data(),
+                             o[3].data(), t, tab_len, B, A, H, mdx, mdy, bw, pg, ps,
+                             nullptr);
+        break;
+      case 21:
+        rc = ((Prune2)e->fn)(g, r, q, s, o[0].data(), o[1].data(), t, tab_len, B, A,
+                             H, mdx, mdy, bw, pg, ps, skip, nullptr);
+        break;
+      case 31:
+        rc = ((Prune3)e->fn)(g, r, q, s, o[0].data(), o[1].data(), o[2].data(), t,
+                             tab_len, B, A, H, mdx, mdy, bw, pg, ps, skip, nullptr);
+        break;
+      case 41:
+        rc = ((Prune4)e->fn)(g, r, q, s, o[0].data(), o[1].data(), o[2].data(),
+                             o[3].data(), t, tab_len, B, A, H, mdx, mdy, bw, pg, ps,
+                             skip, nullptr);
+        break;
+      case 61:
+        rc = ((Prune6)e->fn)(g, r, q, s, o[0].data(), o[1].data(), o[2].data(),
+                             o[3].data(), o[4].data(), o[5].data(), t, tab_len, B, A,
+                             H, mdx, mdy, bw, pg, ps, skip, nullptr);
+        break;
+    }
     std::fwrite(&rc, sizeof(int), 1, out);
-    for (auto& o : outs) std::fwrite(o.data(), sizeof(int), n, out);
+    for (int k = 0; k < e->n_out; ++k) std::fwrite(o[k].data(), sizeof(int), n, out);
   }
   std::fclose(out);
   return 0;

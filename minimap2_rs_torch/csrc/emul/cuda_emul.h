@@ -1,8 +1,9 @@
 // A CUDA grid on the CPU, for checking the logic of the kernels in csrc/
 // with g++ -std=c++20 -pthread where there is no card and no nvcc.
 //
-// One std::thread per CUDA thread; the blocks of a launch run one after
-// another. __syncthreads is a std::barrier of the block, a named barrier
+// One std::thread per CUDA thread, a block's threads along x only; the
+// blocks of a launch (a grid in x and y) run one after another.
+// __syncthreads is a std::barrier of the block, a named barrier
 // (bar_sync) one of its own count, and every warp intrinsic an exchange
 // through the warp's 32 slots between two waits on the warp's barrier, so
 // a warp's lanes run in lockstep at each intrinsic, as on the card. A
@@ -46,6 +47,9 @@ struct dim3 {
 };
 struct alignas(16) int4 {
   int x, y, z, w;
+};
+struct alignas(16) longlong2 {
+  long long x, y;
 };
 inline int4 make_int4(int x, int y, int z, int w) { return int4{x, y, z, w}; }
 
@@ -145,7 +149,7 @@ void launch(void (*kernel)(P...), dim3 grid, dim3 block, size_t smem,
   const auto it = dyn_limit.find((const void*)kernel);
   const size_t limit = it == dyn_limit.end() ? kDefaultDynamicSmem : it->second;
   if (block.x * block.y * block.z > 1024 || block.y != 1 || block.z != 1 ||
-      grid.y != 1 || grid.z != 1) {
+      grid.y > 65535 || grid.z != 1) {
     last_error = cudaErrorInvalidConfiguration;
     return;
   }
@@ -153,23 +157,24 @@ void launch(void (*kernel)(P...), dim3 grid, dim3 block, size_t smem,
     last_error = cudaErrorInvalidValue;
     return;
   }
-  for (unsigned bx = 0; bx < grid.x; ++bx) {
-    Block blk(block.x, smem);
-    std::vector<std::thread> threads;
-    threads.reserve(block.x);
-    for (unsigned t = 0; t < block.x; ++t)
-      threads.emplace_back([&, t, bx] {
-        cur = &blk;
-        threadIdx = dim3(t);
-        blockIdx = dim3(bx);
-        blockDim = block;
-        gridDim = grid;
-        kernel(static_cast<P>(args)...);
-        blk.warp[t / 32]->arrive_and_drop();
-        blk.all.arrive_and_drop();
-      });
-    for (auto& th : threads) th.join();
-  }
+  for (unsigned by = 0; by < grid.y; ++by)
+    for (unsigned bx = 0; bx < grid.x; ++bx) {
+      Block blk(block.x, smem);
+      std::vector<std::thread> threads;
+      threads.reserve(block.x);
+      for (unsigned t = 0; t < block.x; ++t)
+        threads.emplace_back([&, t, bx, by] {
+          cur = &blk;
+          threadIdx = dim3(t);
+          blockIdx = dim3(bx, by);
+          blockDim = block;
+          gridDim = grid;
+          kernel(static_cast<P>(args)...);
+          blk.warp[t / 32]->arrive_and_drop();
+          blk.all.arrive_and_drop();
+        });
+      for (auto& th : threads) th.join();
+    }
 }
 
 }  // namespace mm2t_emul
@@ -186,6 +191,13 @@ inline T __shfl_xor_sync(unsigned, T v, int o) {
 template <class T>
 inline T __shfl_sync(unsigned, T v, int src) {
   return mm2t_emul::warp_values(v)[src];
+}
+// lanes below `delta` keep their own value, as on the card
+template <class T>
+inline T __shfl_up_sync(unsigned, T v, unsigned delta) {
+  const unsigned lane = threadIdx.x % 32;
+  const auto all = mm2t_emul::warp_values(v);
+  return lane >= delta ? all[lane - delta] : v;
 }
 inline unsigned __ballot_sync(unsigned, int pred) {
   const auto all = mm2t_emul::warp_values(pred != 0);

@@ -35,6 +35,7 @@ CHAIN_ENTRIES = (
     ("mm2t_chain_dp_aux_short", 4, False), ("mm2t_chain_dp_short", 2, False),
     ("mm2t_chain_dp_aux_lane", 4, False), ("mm2t_chain_dp_lane", 2, False),
     ("mm2t_chain_dp_aux_prune", 6, True), ("mm2t_chain_dp_prune", 3, True),
+    ("mm2t_chain_dp_aux_prune_smem", 4, True), ("mm2t_chain_dp_prune_smem", 2, True),
 )
 
 _lib = None
@@ -102,12 +103,15 @@ def library() -> ctypes.CDLL:
                 *[ci] * prune,       # max_chain_skip
                 vp,                  # stream
             ]
-        lib.mm2t_window_scan.restype = ci
-        lib.mm2t_window_scan.argtypes = [
-            vp, vp, vp, vp, vp,      # ks, ps, l_eff, lengths, emit_final
-            vp, vp, vp,              # emitted, ring_x, ring_y
-            ci, ci, ci, ci,          # B, L, w, k
-            vp,                      # stream
-        ]
+        for name, n_scratch in (("mm2t_window_scan", 2), ("mm2t_window_scan_tile", 0)):
+            fn = getattr(lib, name)
+            fn.restype = ci
+            fn.argtypes = [
+                vp, vp, vp, vp, vp,  # ks, ps, l_eff, lengths, emit_final
+                vp,                  # emitted
+                *[vp] * n_scratch,   # ring_x, ring_y (the sequential design)
+                ci, ci, ci, ci,      # B, L, w, k
+                vp,                  # stream
+            ]
         _lib = lib
     return _lib

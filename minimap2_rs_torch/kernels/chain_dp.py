@@ -13,12 +13,12 @@ chain_dp_batch_pallas: `_static_kernel`, `_chain_kernel` and
 `_chain_kernel_lane`, at the same shapes.
 
 With max_chain_skip set, each wrapper launches the variant's pruned
-instance instead (mm2t_chain_dp_prune, mm2t_chain_dp_aux_prune): the
-reference's max_chain_skip early break, which the JAX package runs in
-its lax.scan DP under MM2T_SKIP_PRUNE (ops/chain_ops.py:80-137); it has
-no Pallas counterpart.
+instance instead (mm2t_chain_dp_prune, mm2t_chain_dp_aux_prune, and their
+"_smem" design): the reference's max_chain_skip early break, which the
+JAX package runs in its lax.scan DP under MM2T_SKIP_PRUNE
+(ops/chain_ops.py:80-137); it has no Pallas counterpart.
 
-Three designs, picked by shape before the launch (`design`), each with a
+Four designs, picked by shape before the launch (`design`), each with a
 runtime window H = min(window, A):
 - "short", at A < 1024 with an exact window (the static and dynamic
   shape classes): the short-read kernel (mm2t_chain_dp_aux_short,
@@ -28,11 +28,23 @@ runtime window H = min(window, A):
 - "lane", at A >= 1024 with an exact window whose shared-memory ring
   fits a block: the block-per-read kernel (mm2t_chain_dp_aux_lane,
   mm2t_chain_dp_lane: the window in shared memory, one barrier per row);
-- "template" for every other call (the pruned ones, and blocks that
-  would not fit): the warp-per-read template, which reads the window
-  from global memory.
+- "smem", with max_chain_skip, when the read fits a block's shared
+  memory: the pruned kernel (mm2t_chain_dp_aux_prune_smem,
+  mm2t_chain_dp_prune_smem), a warp per read with the read in shared
+  memory, walking each row's window in chunks of 32 with warp scans in
+  place of a serial walk;
+- "template" for every other call (blocks that would not fit): the
+  warp-per-read template, which reads the window from global memory.
 All are bound by the sequential row walk's per-step latency, not FLOPs
 (see the source's headers).
+
+Anchor order. The plain versions, the template, the lane kernel and the
+pruned kernel admit a predecessor with dr != 0, so an anchor to the
+right of i in the reference (dr < 0) may chain; the short-read kernel,
+like the Pallas static kernel, rejects dr < 0 with an unsigned compare.
+The designs agree on anchors sorted by reference position within each
+group, which every caller passes (models/stages.chain_inputs and the
+CLI), so no output depends on the design.
 
 On CUDA tensors each wrapper launches its kernel or raises; on CPU
 tensors it runs the plain version in ops/chain_ops.py. Launches are
@@ -101,13 +113,24 @@ def short_block_bytes(A: int, aux: bool) -> int:
     return SHORT_TAB * 4 + SHORT_READS * A * (8 if aux else 6) * 4
 
 
+# the dynamic shared memory a pruned kernel's block may take: 227 KB
+PRUNE_SMEM_MAX = 227 * 1024
+
+
+def prune_block_bytes(A: int, aux: bool) -> int:
+    """Shared memory of a pruned kernel's block, one read: A slots of 10
+    words for aux (grp, rpos, qpos, span, f, prev, the marks t, cnt, sq,
+    sr), 7 for (f, prev)."""
+    return A * (10 if aux else 7) * 4
+
+
 def design(A: int, window: int, aux: bool, max_chain_skip: int | None) -> str:
     """The design a (B, A) call takes, by shape, before the launch:
     "short" for the exact window at A < 1024, "lane" for the exact window
-    at A >= 1024, each when its block fits shared memory, else
-    "template"."""
+    at A >= 1024, "smem" with max_chain_skip, each when its block fits
+    shared memory, else "template"."""
     if max_chain_skip is not None:
-        return "template"
+        return "smem" if prune_block_bytes(A, aux) <= PRUNE_SMEM_MAX else "template"
     if shape_class(A, window) == "lane":
         fits = lane_ring_bytes(min(window, A), aux) <= LANE_SMEM_MAX
         return "lane" if fits else "template"
@@ -163,8 +186,9 @@ def _launch(entry: str, n_out: int, grp, rpos, qpos, span, scalars: ChainScalars
     new = lambda: torch.empty((B, A), dtype=torch.int32, device=dev)
     outs = [new() for _ in range(n_out)]
     prune = max_chain_skip is not None
-    # the pruned instances' scratch: prev (aux only) and the marks t
-    scratch = [new() for _ in range(1 + (n_out == 4))] if prune else []
+    # the template's pruned instances' scratch: prev (aux only) and the
+    # marks t
+    scratch = [new() for _ in range(1 + (n_out == 4))] if entry.endswith("_prune") else []
     tail = (max_chain_skip,) if prune else ()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
@@ -207,17 +231,19 @@ def _run(variant: str, n_out: int, ref, grp, rpos, qpos, span,
 
 
 def template_batch(aux: bool, grp, rpos, qpos, span, scalars: ChainScalars,
-                   window: int, log2_tab: torch.Tensor):
-    """The exact-window DP through the warp-per-read template at any
-    shape, on CUDA tensors: the design the short and lane shapes ran
-    before their own kernels, kept callable so a run can time both on
-    the same inputs. Not a path of the mapper, and not counted."""
-    dev = _validate(grp, rpos, qpos, span, scalars, window, log2_tab, None)
+                   window: int, log2_tab: torch.Tensor, max_chain_skip: int | None = None):
+    """The DP through the warp-per-read template (its pruned instance
+    with max_chain_skip) at any shape, on CUDA tensors: the design the
+    short, lane and pruned shapes ran before their own kernels, kept
+    callable so a run can time both on the same inputs. Not a path of
+    the mapper, and not counted."""
+    dev = _validate(grp, rpos, qpos, span, scalars, window, log2_tab, max_chain_skip)
     if dev.type != "cuda":
         raise ValueError("template_batch launches a kernel: CUDA tensors only")
-    entry = "mm2t_chain_dp_aux" if aux else "mm2t_chain_dp"
-    return _launch(entry, 4 if aux else 2, grp, rpos, qpos, span, scalars, window,
-                   log2_tab, None)
+    variant = ("chain_dp_aux" if aux else "chain_dp") + (
+        "" if max_chain_skip is None else "_prune")
+    return _launch(entry_point(variant, "template"), 4 if aux else 2, grp, rpos, qpos,
+                   span, scalars, window, log2_tab, max_chain_skip)
 
 
 def chain_dp_aux_batch(

@@ -120,10 +120,11 @@ def _best(scores: torch.Tensor, off: int):
     return best, jb
 
 
-def _skip_prune_mask(scores, ok, prev_w, off: int, span_i, max_skip: int):
+def _skip_prune_scanned(scores, ok, prev_w, off: int, span_i, max_skip: int):
     """The reference's max_chain_skip early break (lchain.rs:79-88;
-    JAX chain_ops.py:80-137) over one (B, H) window: every slot older
-    than the break point is masked to NEG_INF.
+    JAX chain_ops.py:80-137) over one (B, H) window: the (B, H) mask, in
+    window order, of the slots the walk scans, up to and including the
+    break point.
 
     Walking j newest-first, a beat (sc > running max, seeded with
     span_i) decrements the skip counter (floored at 0), a non-beat with
@@ -151,7 +152,14 @@ def _skip_prune_mask(scores, ok, prev_w, off: int, span_i, max_skip: int):
     counter = torch.maximum(cum_a, cum_a + (b - cum_a).cummax(dim=1).values)
     crossed = (counter > max_skip).to(torch.int64)
     scanned = (crossed.cumsum(dim=1) - crossed) == 0
-    return torch.where(scanned.flip(1), scores, NEG_INF)
+    return scanned.flip(1)
+
+
+def _skip_prune_mask(scores, ok, prev_w, off: int, span_i, max_skip: int):
+    """The window's scores with every slot older than the break point
+    (_skip_prune_scanned) masked to NEG_INF."""
+    keep = _skip_prune_scanned(scores, ok, prev_w, off, span_i, max_skip)
+    return torch.where(keep, scores, NEG_INF)
 
 
 def _row_best(g, rp, qp, sp, f, prev, i, H, scalars, tab, pens, max_chain_skip):
@@ -226,3 +234,27 @@ def chain_dp_aux_batch_ref(
         sq[:, i] = torch.where(win, sq[rows, jb], qp[:, i])
         sr[:, i] = torch.where(win, sr[rows, jb], rp[:, i])
     return tuple(t.to(torch.int32) for t in (f, cnt, sq, sr))
+
+
+def scanned_pairs(grp, rpos, qpos, span, f, prev, scalars: ChainScalars, window: int,
+                  log2_tab: torch.Tensor, max_chain_skip: int | None) -> torch.Tensor:
+    """(B,) int64: the predecessor slots j in [max(0, i-H), i) that the
+    walk of each read visits, summed over its rows i < n (n one past its
+    last valid anchor, the rows a kernel walks), given the DP's own (f,
+    prev), chain_dp_batch_ref's outputs at the same max_chain_skip. With
+    max_chain_skip the walk stops at its break (_skip_prune_scanned);
+    without it every slot of the window counts."""
+    (g, rp, qp, sp), tab, pens = _dp_inputs(grp, rpos, qpos, span, scalars, log2_tab)
+    f, prev = f.to(torch.int64), prev.to(torch.int64)
+    B, A = grp.shape
+    H = min(window, A)
+    n = torch.where(g != -1, torch.arange(1, A + 1, device=grp.device), 0).amax(dim=1)
+    total = torch.zeros(B, dtype=torch.int64, device=grp.device)
+    for i in range(A):
+        scores, ok, off = _window_scores(g, rp, qp, sp, f, i, H, scalars, tab, pens)
+        walk = (torch.arange(off, off + H, device=grp.device) < i)[None, :] & (i < n)[:, None]
+        if max_chain_skip is not None:
+            walk &= _skip_prune_scanned(scores, ok, prev[:, off : off + H], off, sp[:, i],
+                                        max_chain_skip)
+        total += walk.sum(dim=1)
+    return total

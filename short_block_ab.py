@@ -121,8 +121,8 @@ def main() -> int:
                     res.setdefault(name, []).append(cs._time_ms(run, inner=cs.KERNEL_INNER))
             tmpl = cs._time_ms(lambda: kchain.template_batch(aux, *args, scal, win, tab),
                                inner=cs.KERNEL_INNER)
-            bound_ms, bound_by, _pairs = cs._chain_bound(args, win, 4 if aux else 2,
-                                                         tab.shape[0])
+            bound_ms, bound_by, _pairs = cs._chain_bound(args, scal, win, 4 if aux else 2,
+                                                         tab, None)
             rows = int(cs._valid_rows(args[0]).max())
             print(f"{key} bw={bw} (B, A)={tuple(args[0].shape)} H={min(win, A)} "
                   f"rows={rows}: "

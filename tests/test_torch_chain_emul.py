@@ -1,11 +1,12 @@
 """The chain-DP kernels' logic on the CPU: csrc/chain_dp.cu compiled with
 g++ against csrc/emul/cuda_emul.h (one std::thread per CUDA thread,
 std::barrier for the barriers, the warp intrinsics between warp
-barriers), its short-read entry points run on seeded inputs and held
-equal to the plain versions. A text pass includes the header in place of
-<cuda_runtime.h> and rewrites the dynamic shared memory declarations and
-the <<<...>>> launches into calls of the header. The short-read kernel
-is built at one warp a read (kShortThreads = 32) and at two (64)."""
+barriers), its short-read entry points and both designs of the pruned
+instances run on seeded inputs and held equal to the plain versions. A
+text pass includes the header in place of <cuda_runtime.h> and rewrites
+the dynamic shared memory declarations and the <<<...>>> launches into
+calls of the header. The short-read kernel is built at one warp a read
+(kShortThreads = 32) and at two (64)."""
 
 import re
 import shutil
@@ -23,6 +24,7 @@ from minimap2_rs_torch.ops.chain_ops import (
     chain_dp_batch_ref,
     chain_scalars_from_params,
     log2_table,
+    scanned_pairs,
 )
 from test_torch_chain_lane import TIE_KW, tie_read
 
@@ -34,8 +36,9 @@ SHORT = ("mm2t_chain_dp_aux_short", "mm2t_chain_dp_short")
 TEMPLATE = ("mm2t_chain_dp_aux", "mm2t_chain_dp")
 
 
-def emulated_source(src: str, short_threads: int) -> str:
-    """chain_dp.cu as g++ compiles it against cuda_emul.h."""
+def emulated_source(src: str, **constants: int) -> str:
+    """A csrc/*.cu source as g++ compiles it against cuda_emul.h, with each
+    named `constexpr int` set to the value given."""
     n_launch = src.count("<<<")
     src = src.replace("#include <cuda_runtime.h>", '#include "cuda_emul.h"')
     src = re.sub(r"extern __shared__ (\w+) (\w+)\[\];",
@@ -43,10 +46,23 @@ def emulated_source(src: str, short_threads: int) -> str:
     src, n = re.subn(r"([\w:]+(?:<[^<>;()]*>)?)\s*<<<(.*?)>>>\s*\(",
                      r"mm2t_emul::launch(\1, \2, ", src)
     assert n == n_launch > 0
-    src, n = re.subn(r"constexpr int kShortThreads = \d+;",
-                     f"constexpr int kShortThreads = {short_threads};", src)
-    assert n == 1
+    for name, value in constants.items():
+        src, n = re.subn(rf"constexpr int {name} = \d+;", f"constexpr int {name} = {value};",
+                         src)
+        assert n == 1, name
     return src
+
+
+def build_emulated(gxx: str, out: Path, stem: str, src: str, main: str) -> Path:
+    """g++ build of an emulated source with its runner csrc/emul/<main>."""
+    cpp = out / f"{stem}.cpp"
+    cpp.write_text(src)
+    exe = out / stem
+    cmd = [gxx, "-std=c++20", "-O1", "-pthread", "-ffp-contract=off",
+           f"-I{CSRC / 'emul'}", str(cpp), str(CSRC / "emul" / main), "-o", str(exe)]
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=240)
+    assert res.returncode == 0, res.stderr[-4000:]
+    return exe
 
 
 @pytest.fixture(scope="module")
@@ -60,15 +76,8 @@ def binaries(tmp_path_factory):
     src = (CSRC / "chain_dp.cu").read_text()
 
     def build(threads):
-        cpp = out / f"chain_dp_t{threads}.cpp"
-        cpp.write_text(emulated_source(src, threads))
-        exe = out / f"chain_dp_t{threads}"
-        cmd = [gxx, "-std=c++20", "-O1", "-pthread", "-ffp-contract=off",
-               f"-I{CSRC / 'emul'}", str(cpp), str(CSRC / "emul" / "chain_dp_main.cpp"),
-               "-o", str(exe)]
-        res = subprocess.run(cmd, capture_output=True, text=True, timeout=240)
-        assert res.returncode == 0, res.stderr[-4000:]
-        return exe
+        return build_emulated(gxx, out, f"chain_dp_t{threads}",
+                              emulated_source(src, kShortThreads=threads), "chain_dp_main.cpp")
 
     with ThreadPoolExecutor(len(THREADS)) as ex:
         return dict(zip(THREADS, ex.map(build, THREADS)))
@@ -151,15 +160,15 @@ CASES = ("A=256, full window", "A=256, window 64, jitter 10", "tie read", "tie w
          "wide band, dd past the staged table, pen_skip != 0")
 
 
-def _run(exe, tmp_path, cols, scal, window, tab, entries):
+def _run(exe, tmp_path, cols, scal, window, tab, entries, max_skip=0):
     B, A = cols[0].shape
     inp, out = tmp_path / "in.bin", tmp_path / "out.bin"
     hdr = np.array([B, A, min(window, A), scal.max_dist_x, scal.max_dist_y, scal.bw,
-                    tab.shape[0]], np.int32)
+                    tab.shape[0], max_skip], np.int32)
     pens = np.array([scal.chn_pen_gap, scal.chn_pen_skip], np.float32)
     inp.write_bytes(b"".join(a.tobytes() for a in (hdr, pens, *cols, tab.numpy())))
     res = subprocess.run([str(exe), str(inp), str(out), *entries], capture_output=True,
-                         text=True, timeout=60)
+                         text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     words = np.fromfile(out, np.int32)
     got, pos = {}, 0
@@ -218,3 +227,172 @@ def test_emulated_launch_refuses_an_oversized_block(binaries, tmp_path):
     got = _run(binaries[THREADS[0]], tmp_path, cols, scal, A, log2_table(501),
                ("mm2t_chain_dp_aux_short",))
     assert got["mm2t_chain_dp_aux_short"][0] != 0
+
+
+# ---- the pruned instances (max_chain_skip) ---------------------------------
+
+PRUNE = ("mm2t_chain_dp_aux_prune_smem", "mm2t_chain_dp_prune_smem",
+         "mm2t_chain_dp_aux_prune", "mm2t_chain_dp_prune")
+
+
+def decoys(rng, B, n_blocks, boosters=0, size=(28, 40), A=None):
+    """Rows of [backbone, decoys, backbone, ...] blocks, as in
+    tests/test_torch_chain_prune.py: clusters of `size` decoys on a far
+    diagonal inside the band are admissible but never beat, and the
+    backbone's marks make them count as skips; the backbone anchor's
+    predecessor is the previous one, a chunk or more back. `boosters`
+    on-diagonal beats a cluster, at random places (the counter's floored
+    decrement). Padding to A."""
+    rows = []
+    for _b in range(B):
+        rp, qp, r0 = [], [], 1000
+        for _t in range(n_blocks):
+            n_decoy = int(rng.integers(*size))
+            diag = int(rng.integers(420, 480))
+            rp += [r0] + [r0 + 10 + u for u in range(n_decoy)]
+            qp += [r0] + [r0 + 10 + u + diag for u in range(n_decoy)]
+            for u in rng.choice(n_decoy, size=boosters, replace=False):
+                rp.append(r0 + 10 + int(u))
+                qp.append(r0 + 10 + int(u))
+            r0 += 10 + n_decoy + int(rng.integers(450, 520))
+        o = np.argsort(np.array(rp), kind="stable")
+        rows.append((np.array(rp)[o], np.array(qp)[o]))
+    A = A or max(len(r) for r, _ in rows)
+    cols = [np.full((B, A), -1, np.int32), np.zeros((B, A), np.int32),
+            np.zeros((B, A), np.int32), np.full((B, A), 255, np.int32)]
+    for b, (rp, qp) in enumerate(rows):
+        n = min(len(rp), A)
+        cols[0][b, :n], cols[1][b, :n], cols[2][b, :n], cols[3][b, :n] = 0, rp[:n], qp[:n], 15
+    return tuple(cols)
+
+
+def _prune_case(name):
+    """(cols, scalars, window) of a named pruned case."""
+    default = chain_scalars_from_params(ChainParams.defaults_for_k(15))
+    if name == "decoys, marks across chunks":
+        return decoys(np.random.default_rng(3), 4, 5), default, 5000
+    if name == "decoys, boosters, window 64":
+        return decoys(np.random.default_rng(5), 4, 5, boosters=1), default, 64
+    if name == "decoys, a chunk without a beat":
+        # at max_chain_skip 31 the first chunk of a backbone row counts
+        # marks up to its last lane without a beat or a break
+        return decoys(np.random.default_rng(1), 4, 5), default, 5000
+    if name == "interleaved chains, window 8":
+        # eight chains on diagonals 1000 apart (no pair across them is
+        # admissible), interleaved so that each anchor's only predecessor
+        # is the oldest slot of its window
+        t, c = np.divmod(np.arange(256), 8)
+        r = 1000 + 40 * t + c
+        cols = (np.zeros((1, 256), np.int32), r[None].astype(np.int32),
+                (r + 1000 * c)[None].astype(np.int32), np.full((1, 256), 15, np.int32))
+        return cols, default, 8
+    if name == "long decoy clusters, counter carried across chunks":
+        # the break falls in a row's second chunk, after the first chunk's
+        # last lane changed the counter
+        return decoys(np.random.default_rng(0), 4, 5, boosters=2, size=(50, 70)), default, 5000
+    if name == "colinear runs, n < 32 and n = A":
+        ns = [0, 20, 160, 31, 1, 90]
+        return chains(np.random.default_rng(19), 6, 160, ns), default, 160
+    if name == "tie read":
+        return _case("tie read")[0], _case("tie read")[1], 256
+    if name == "unsorted anchors (dr < 0)":
+        # read 0: a colinear chain whose every 10th anchor steps back one
+        # base in r (dr = -1, dq = 10 from its predecessor, which ties
+        # with the one before and wins as the larger j); the others
+        # shuffled colinear runs
+        rng = np.random.default_rng(23)
+        cols = [c.copy() for c in chains(rng, 4, 128, [128, 100, 64, 20], step=8)]
+        for b, n in enumerate((100, 64, 20), start=1):
+            o = rng.permutation(n)
+            for c in cols:
+                c[b, :n] = c[b, o]
+        steps = np.where(np.arange(128) % 10 == 9, -1, 10)
+        cols[0][0], cols[3][0] = 0, 15
+        cols[1][0] = 1000 + np.cumsum(steps)
+        cols[2][0] = 1000 + 10 * np.arange(128)
+        return tuple(cols), default, 128
+    if name == "A = 1152, B = 1":
+        return decoys(np.random.default_rng(29), 1, 40, boosters=1, A=1152), default, 5000
+    raise KeyError(name)
+
+
+PRUNE_CASES = ("decoys, marks across chunks", "decoys, boosters, window 64",
+               "long decoy clusters, counter carried across chunks",
+               "interleaved chains, window 8", "colinear runs, n < 32 and n = A", "tie read",
+               "unsorted anchors (dr < 0)", "A = 1152, B = 1")
+PRUNE_PARAMS = [(c, s) for c in PRUNE_CASES for s in (0, 1, 25)] + [
+    ("decoys, a chunk without a beat", 31)]
+
+
+@pytest.mark.parametrize("case,skip", PRUNE_PARAMS)
+def test_emulated_pruned_kernels_equal_plain(binaries, tmp_path, case, skip):
+    """Both designs of both pruned instances (the read in shared memory
+    with warp scans, and the template's serial walk) give the plain
+    versions' outputs at max_chain_skip bit for bit."""
+    cols, scal, window = _prune_case(case)
+    tab = log2_table(scal.bw + 1)
+    got = _run(binaries[THREADS[0]], tmp_path, cols, scal, window, tab, PRUNE, max_skip=skip)
+    t = tuple(torch.from_numpy(c.copy()) for c in cols)
+    want_aux = chain_dp_aux_batch_ref(*t, scal, window, tab, max_chain_skip=skip)
+    want_prev = chain_dp_batch_ref(*t, scal, window, tab, max_chain_skip=skip)
+    for entry, (rc, outs) in got.items():
+        assert rc == 0, (entry, rc)
+        want = want_aux if "_aux" in entry else want_prev
+        for name, g, w in zip(("f", "cnt/prev", "sq", "sr"), outs, want):
+            np.testing.assert_array_equal(g, w.numpy(), err_msg=f"{entry}: {name}")
+    # the cases reach what they are named for
+    f, prev = want_prev
+    assert (prev >= 0).any()
+    if case == "tie read":
+        assert prev[0, 3].item() == 2
+        return
+    if case == "interleaved chains, window 8":
+        assert (prev[0, 8:] == torch.arange(248, dtype=torch.int32)).all()
+        return
+    if case == "unsorted anchors (dr < 0)":
+        r = t[1].long()
+        j = prev.long().clamp(min=0)
+        assert ((r - r.gather(1, j) < 0) & (prev >= 0)).any()
+        return
+    walked = scanned_pairs(*t, f, prev, scal, window, tab, skip)
+    assert (walked < scanned_pairs(*t, f, prev, scal, window, tab, None)).any(), \
+        "the break must cut some walk"
+
+
+def test_scanned_pairs_counts_the_oracle_walk():
+    """scanned_pairs equals a count of the j the oracle's loop
+    (oracle/lchain.py:110-129) visits, row by row, on the decoys."""
+    cols, scal, window = _prune_case("decoys, boosters, window 64")
+    tab = log2_table(scal.bw + 1)
+    t = tuple(torch.from_numpy(c.copy()) for c in cols)
+    for skip in (0, 25):
+        f, prev = chain_dp_batch_ref(*t, scal, window, tab, max_chain_skip=skip)
+        got = scanned_pairs(*t, f, prev, scal, window, tab, skip)
+        g, r, q, sp = (c.astype(np.int64) for c in cols)
+        fn, pn = f.numpy().astype(np.int64), prev.numpy().astype(np.int64)
+        for b in range(g.shape[0]):
+            n = int((g[b] != -1).sum())
+            mark = np.full(n, -1)
+            visited = 0
+            for i in range(n):
+                best, n_skip = sp[b, i], 0
+                for j in range(i - 1, max(0, i - window) - 1, -1):
+                    visited += 1
+                    dq, dr = q[b, i] - q[b, j], r[b, i] - r[b, j]
+                    dd = abs(dr - dq)
+                    if not (g[b, j] == g[b, i] and 0 < dq <= scal.max_dist_x and dr != 0
+                            and dr <= scal.max_dist_x and dd <= scal.bw):
+                        continue
+                    dg = min(dr, dq)
+                    pen = int(np.float32(scal.chn_pen_gap) * np.float32(dd)
+                              + np.float32(0.5) * tab[dd].numpy())
+                    sc = fn[b, j] + min(sp[b, j], dg) - pen * (dd != 0 or dg > sp[b, j])
+                    if sc > best:
+                        best, n_skip = sc, max(n_skip - 1, 0)
+                    elif mark[j] == i:
+                        n_skip += 1
+                        if n_skip > skip:
+                            break
+                    if pn[b, j] >= 0:
+                        mark[pn[b, j]] = i
+            assert got[b].item() == visited, (skip, b)

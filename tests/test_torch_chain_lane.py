@@ -1,6 +1,7 @@
-"""The chain-DP wrapper's choice between its three designs (the
-short-read kernel, the block-per-read lane kernel and the warp-per-read
-template), made in Python by shape before any launch; the entry points
+"""The chain-DP wrapper's choice between its four designs (the
+short-read kernel, the block-per-read lane kernel, the pruned kernel with
+the read in shared memory and the warp-per-read template), made in Python
+by shape before any launch; the entry points
 it can form, against the library's bindings and the source; and the tie
 rule every kernel's reduction must keep: the plain versions, like the
 JAX scan DP, take the largest j among equal scores."""
@@ -51,11 +52,15 @@ DISPATCH = {
     "dynamic (A=768, H=256)": (768, 256, False, None, "short"),
     "dynamic aux (A=768, H=1)": (768, 1, True, None, "short"),
     "largest short shape (aux, A=1023)": (1023, 1023, True, None, "short"),
-    "pruned static aux (A=256)": (256, 256, True, 25, "template"),
-    "pruned static (A=768)": (768, 5000, False, 25, "template"),
-    "pruned dynamic aux (A=384, H=128)": (384, 128, True, 0, "template"),
-    "pruned lane": (4480, 5000, False, 25, "template"),
-    "pruned lane aux": (4480, 1024, True, 25, "template"),
+    "pruned static aux (A=256)": (256, 256, True, 25, "smem"),
+    "pruned static (A=768)": (768, 5000, False, 25, "smem"),
+    "pruned dynamic aux (A=384, H=128)": (384, 128, True, 0, "smem"),
+    "pruned lane": (4480, 5000, False, 25, "smem"),
+    "pruned lane aux": (4480, 1024, True, 25, "smem"),
+    "pruned CLI lane (A=1152)": (1152, 5000, False, 25, "smem"),
+    "pruned aux at the limit (A=5811)": (5811, 5000, True, 25, "smem"),
+    "pruned aux over 227 KB (A=5812)": (5812, 5000, True, 25, "template"),
+    "pruned (f, prev) over 227 KB (A=8320)": (8320, 5000, False, 25, "template"),
     "aux ring over 227 KB (H=6721)": (8192, 6721, True, None, "template"),
     "(f, prev) ring over 227 KB (H=12000)": (12288, 12000, False, None, "template"),
 }
@@ -70,6 +75,9 @@ def test_lane_design_by_shape(case):
         assert (ring <= kchain.LANE_SMEM_MAX) is (want == "lane")
     if skip is None and A < 1024:
         assert kchain.short_block_bytes(A, aux) <= kchain.SHORT_SMEM_MAX
+    if skip is not None:
+        fits = kchain.prune_block_bytes(A, aux) <= kchain.PRUNE_SMEM_MAX
+        assert fits is (want == "smem")
 
 
 def _launched_entries(monkeypatch, A, window, aux, skip):
@@ -121,7 +129,7 @@ def test_short_blocks_over_the_limit_take_the_template(monkeypatch):
 
 def _formable_entries():
     """Every entry point the wrapper can form: each variant in each
-    design its shapes reach (a pruned call always takes the template)."""
+    design its shapes reach."""
     names = set()
     for A, window, aux, skip, _want in DISPATCH.values():
         variant = ("chain_dp_aux" if aux else "chain_dp") + ("_prune" if skip is not None else "")
@@ -133,7 +141,7 @@ def test_every_formable_entry_is_bound_and_defined():
     """Each entry point the wrapper can form is bound by kernels/build.py
     and has an extern "C" definition in csrc/chain_dp.cu."""
     formed = _formable_entries()
-    assert len(formed) == 8  # 2 variants x 3 designs + 2 pruned instances
+    assert len(formed) == 10  # 2 variants x 3 designs + 2 pruned instances x 2
     bound = {name for name, _n, _p in kbuild.CHAIN_ENTRIES}
     defined = set(re.findall(r'extern "C" int (\w+)\(', CHAIN_CU.read_text()))
     assert formed <= bound <= defined, (formed - bound, bound - defined)
@@ -194,3 +202,29 @@ def test_plain_versions_break_ties_to_the_largest_j(pad):
     jaux = jchain.chain_dp_aux_batch(*jargs, jscal, A)
     for g, w in zip((f2, cnt, sq, sr), jaux):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("aux", [False, True], ids=["f_prev", "aux"])
+@pytest.mark.parametrize("skip", [None, 25])
+def test_template_batch_launches_the_template(monkeypatch, aux, skip):
+    """template_batch, which times the previous design, forms the
+    template's entry (its pruned instance with max_chain_skip) and counts
+    nothing; on CPU tensors it raises."""
+    entries = []
+
+    def fake_launch(entry, n_out, grp, *_a, **_k):
+        entries.append(entry)
+        return tuple(torch.zeros_like(grp) for _ in range(n_out))
+
+    cols = [torch.zeros((1, 256), dtype=torch.int32) for _ in range(4)]
+    scal = chain_scalars_from_params(ChainParams())
+    with pytest.raises(ValueError):
+        kchain.template_batch(aux, *cols, scal, 256, log2_table(501), skip)
+    monkeypatch.setattr(kchain, "_validate", lambda *a, **k: torch.device("cuda"))
+    monkeypatch.setattr(kchain, "_launch", fake_launch)
+    monkeypatch.setattr(kchain, "launches", dict.fromkeys(kchain.launches, 0))
+    outs = kchain.template_batch(aux, *cols, scal, 256, log2_table(501), skip)
+    assert len(outs) == (4 if aux else 2)
+    variant = ("chain_dp_aux" if aux else "chain_dp") + ("" if skip is None else "_prune")
+    assert entries == [f"mm2t_{variant}"]
+    assert not any(kchain.launches.values())

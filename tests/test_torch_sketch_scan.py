@@ -105,3 +105,36 @@ def test_window_scan_wrapper_on_cpu_is_the_plain_version():
     want = tscan._window_scan_ref(ks, ps, l_eff, torch.from_numpy(lengths), 10, 14, ef)
     assert torch.equal(got, want) and got.any()
     assert not any(kscan.launches.values())
+
+
+def test_window_scan_wrapper_launches_the_tiled_entry(monkeypatch):
+    """On a CUDA device the wrapper launches the position-parallel entry
+    and counts it by length class; sequential_scan launches the first
+    design uncounted. The launch itself is replaced, as this machine has
+    no card."""
+    entries = []
+
+    def fake_launch(entry, ks, *_a):
+        entries.append(entry)
+        return torch.zeros(ks.shape, dtype=torch.bool)
+
+    monkeypatch.setattr(kscan, "_validate", lambda *a: torch.device("cuda"))
+    monkeypatch.setattr(kscan, "_launch", fake_launch)
+    monkeypatch.setattr(kscan, "captured", None)
+    monkeypatch.setattr(kscan, "launches", dict.fromkeys(kscan.launches, 0))
+    args = [torch.zeros((2, 5000), dtype=torch.int64)] * 2 + [
+        torch.zeros((2, 5000), dtype=torch.int32), torch.zeros(2, dtype=torch.int32)]
+    ef = torch.ones(2, dtype=torch.bool)
+    kscan.window_scan(*args, 10, 14, ef)
+    kscan.sequential_scan(*args, 10, 14, ef)
+    assert entries == ["mm2t_window_scan_tile", "mm2t_window_scan"]
+    assert {k: v for k, v in kscan.launches.items() if v} == {"window_scan/long": 1}
+
+
+def test_sequential_scan_needs_cuda():
+    codes, lengths = _batch(_cases()[:2])
+    ks, ps, l_eff = tscan._kmer_info_even(torch.from_numpy(codes),
+                                          torch.from_numpy(lengths), 14, False)
+    with pytest.raises(ValueError):
+        kscan.sequential_scan(ks, ps, l_eff.to(torch.int32), torch.from_numpy(lengths),
+                              10, 14, torch.ones(2, dtype=torch.bool))
