@@ -32,7 +32,25 @@ Mapper.map_reads_paf:
   * CLI: `index`, then `anchors` and `chain` with --engine device on one
     long read at k=15 and k=14, equal to --engine host;
   * extension: both banded extension functions on 64 random pairs, on
-    the card equal to the CPU.
+    the card equal to the CPU;
+  * mesh dp: MeshMapper (dp = 1) over a 1-rank NCCL group on the
+    headline reads, byte-identical to the single-device Mapper, its
+    median pass beside the Mapper's;
+  * CLI: `align --mesh 1` equal to `align` on the headline's FASTA;
+  * mesh sharded: a 10 Mbp genome (seed 0, k=15), 2,048 reads of
+    500-1000 bp (seed 1) and 32 of 5-20 kb (seed 3), the index
+    hash-range-sharded over 2 gloo ranks that share cuda:0
+    (minimap2_rs_torch.parallel.ranks.spawn with share_device; NCCL
+    refuses two ranks on one device, so gloo carries the collectives,
+    staged through host memory). Each rank's shard takes the two-phase
+    table (dm_entry 2); the PAF is the same on both ranks and
+    byte-identical to the oracle on every 16th short read and every
+    long read; each rank's collective index statistics and quantile
+    equal the oracle's; each rank prints its median pass, collective
+    bytes and seconds a pass, transports and launches, and holds its
+    captured chain-kernel inputs to the plain versions. This stands in
+    for the 100 Mbp genome on 4 cards (bench.py:475-531): ix = 2 at
+    10 Mbp is the smallest layout whose shards take dm_entry 2.
 Every mapping phase is byte-identical to the host oracle (default
 parameters unless said otherwise).
 
@@ -44,7 +62,8 @@ kernel launch and prints their summed time beside the pass time.
 Afterwards each kernel is held bit for bit against its plain PyTorch
 version on those inputs (the window scan's long shape on 8 rows), and
 the dynamic-window shape, which no mapping path launches, on the
-headline's inputs at window 128. A synthetic phase holds both lane
+headline's inputs at window 128; the mesh phases' rows on the inputs of
+the 1-rank mesh and of sharded rank 0. A synthetic phase holds both lane
 kernels against their plain versions on the edge cases (no valid
 anchor, n < H, A not a multiple of the block, forced score ties, the
 largest general shape: A = 11,904, H = 5000), both short-read kernels
@@ -739,6 +758,134 @@ def _launched(captured, key):
             if k[0] == key]
 
 
+def _mesh_dp_phase(idx, cp, mp, reads, lines, mapper_ms: float, mapper_stats: dict):
+    """MeshMapper (dp = 1) over a 1-rank NCCL group on the headline reads:
+    byte-identical to the single-device Mapper's `lines`, its median pass
+    printed beside the Mapper's, and the host seconds of its last pass
+    (encode, stage issue, the all_gather) beside the Mapper's. Returns its captured kernel inputs and
+    its timed passes' launches."""
+    from minimap2_rs_torch.models.mesh_mapper import make_mesh_mapper
+
+    mm = make_mesh_mapper(idx, cp, mp, dp=1, device="cuda", batch_size=1024)
+    if mm.mesh.backend != "nccl":
+        raise AssertionError(f"the 1-rank mesh took {mm.mesh.backend}, not nccl")
+    tag = "mesh dp (NCCL, 1 rank)"
+    launches: dict = {}
+    mlines, mtimes, mstats, cap = _map_phase(tag, mm, reads, 3, ["chain_dp_aux/static"],
+                                             launches)
+    if mlines != lines:
+        first = next((f"{a!r} != {b!r}" for a, b in zip(mlines, lines) if a != b),
+                     f"line counts {len(mlines)} vs {len(lines)}")
+        raise AssertionError(f"[{tag}] != the single-device Mapper: {first}")
+    print(f"{tag} median pass {_median(mtimes):.4f} s beside the single-device Mapper's "
+          f"{mapper_ms:.4f} s (same call); {len(mlines)} PAF lines byte-identical to the "
+          f"Mapper's; collectives over 4 passes: {json.dumps(mm.mesh.stats)}")
+    keys = ("submit", "encode", "stage_issue", "h2d_bytes", "d2h+wait", "post")
+    print(f"{tag} last pass beside the Mapper's last pass: " + json.dumps(
+        {kk: [mstats.get(kk), mapper_stats.get(kk)] for kk in keys}))
+    return cap, launches
+
+
+def _mesh_cli_phase(cli, cli_dir: Path, genome: bytes, reads) -> None:
+    """`align --mesh 1` against `align` on the headline's FASTA files."""
+    ref_fa, qry_fa = cli_dir / "headline_ref.fa", cli_dir / "headline_reads.fa"
+    ref_fa.write_bytes(b">chrB\n" + genome + b"\n")
+    qry_fa.write_bytes(b"".join(b">" + n.encode() + b"\n" + s + b"\n" for n, s in reads))
+    out = []
+    for extra in ([], ["--mesh", "1"]):
+        paf = cli_dir / f"headline{'_mesh' if extra else ''}.paf"
+        t0 = time.perf_counter()
+        cli("align", ref_fa, qry_fa, "-o", paf, *extra)
+        out.append(paf.read_bytes())
+        print(f"CLI align {' '.join(extra)}: {time.perf_counter() - t0:.2f} s "
+              f"(index build included), {out[-1].count(b'\n')} lines")
+    if out[0] != out[1] or not out[0]:
+        raise AssertionError("CLI align --mesh 1 != align on the headline")
+    print("CLI align --mesh 1 == align on the headline FASTA, byte for byte")
+
+
+# the sharded phase: two gloo ranks on one card; a 10 Mbp genome gives
+# each shard the compact two-phase table (dm_entry 2) at ix = 2
+SHARDED_RANKS = 2
+SHARDED_TIMEOUT_S = 600
+
+
+def _mesh_sharded_phase(cp, mp, store_dir: Path):
+    """MeshMapper with the index hash-range-sharded over 2 gloo ranks
+    sharing cuda:0 (ranks.spawn, share_device), on a 10 Mbp genome with
+    2,048 short and 32 long reads: byte parity with the oracle on every
+    16th short read and every long read, the same bytes on both ranks,
+    dm_entry 2 on each shard, the collective statistics and quantile equal
+    to the oracle's. Prints each rank's median pass, collective bytes and
+    seconds, transports and launches. Each rank has held its captured
+    kernel inputs to the plain versions; returns rank 0's, for the kernel
+    rows, as [(key, (args, scalars, window, skip))] on the card, and the
+    launches of the timed passes summed over the ranks."""
+    import numpy as np
+    import torch
+
+    from minimap2_rs_torch.config import IndexParams
+    from minimap2_rs_torch.models.index_builder import build_index_native
+    from minimap2_rs_torch.parallel import ranks
+    from minimap2_rs_torch.utils.seqsim import random_genome, simulate_reads
+
+    t0 = time.perf_counter()
+    g10 = random_genome(10_000_000, seed=0)
+    idx10 = build_index_native([("chrS", g10)], IndexParams())
+    short = [(n, s) for n, s, *_ in simulate_reads(g10, 2048, read_len=(500, 1000), seed=1)]
+    long_ = [(f"long_{n}", s) for n, s, *_ in simulate_reads(
+        g10, 32, read_len=(5000, 20000), seed=3)]
+    print(f"mesh sharded set-up {time.perf_counter() - t0:.1f} s: {idx10.keys.shape[0]} keys")
+    run = dict(name="sharded", idx=idx10, cp=cp, mp=mp, reads=short + long_, dp=1,
+               ix=SHARDED_RANKS, sharded=True, kw=dict(batch_size=1024))
+    t0 = time.perf_counter()
+    res = ranks.spawn(ranks.mesh_map, SHARDED_RANKS, [run], store_dir=store_dir,
+                      device="cuda:0", share_device=True, timeout_s=SHARDED_TIMEOUT_S,
+                      task_kw=dict(passes=3, hold_kernels=True, fracs=(2e-4,), dm_entry=2))
+    res = [r["sharded"] for r in res]
+    print(f"mesh sharded: {SHARDED_RANKS} gloo ranks on cuda:0 ran in "
+          f"{time.perf_counter() - t0:.1f} s")
+    if any(r["blob"] != res[0]["blob"] for r in res):
+        raise AssertionError("[mesh sharded] the ranks' PAF bytes differ")
+    lines = res[0]["blob"].decode().split("\n")[:-1]
+    n_par = _parity("mesh sharded", idx10, short[::16] + long_, lines, cp, mp)
+    want_stats = (int(idx10.keys.shape[0]), int(idx10.positions.shape[0]))
+    want_mid = idx10.calc_mid_occ(2e-4)
+    captured, launches = [], {}
+    for rank, r in enumerate(res):
+        if r["dm_entry"] != 2:
+            raise AssertionError(f"[mesh sharded] rank {rank}: dm_entry {r['dm_entry']}")
+        if tuple(r["stats_allreduce"]) != want_stats or r["mid_occ"][2e-4] != want_mid:
+            raise AssertionError(f"[mesh sharded] rank {rank}: stats {r['stats_allreduce']}"
+                                 f", mid_occ {r['mid_occ']} != {want_stats}, {want_mid}")
+        for key in ("chain_dp_aux/static", "chain_dp_aux/lane"):
+            if not r["launches"].get(key):
+                raise AssertionError(f"[mesh sharded] rank {rank} never launched {key}")
+        for key, v in r["launches"].items():
+            launches[key] = launches.get(key, 0) + v
+        n = len(r["times"])
+        coll = {kk: {"calls_per_pass": v["calls"] / n, "bytes_sent_per_pass": v["bytes_sent"] / n,
+                     "seconds_per_pass": v["seconds"] / n, "transport": v["transport"]}
+                for kk, v in r["collectives"].items()}
+        print(f"mesh sharded rank {rank}: median pass {_median(r['times']):.4f} s (passes "
+              f"{[round(t, 4) for t in r['times']]}); dm_entry {r['dm_entry']}; stats "
+              f"{tuple(r['stats_allreduce'])} and mid_occ {r['mid_occ'][2e-4]} equal the "
+              f"oracle's; launches over {n} passes {r['launches']}")
+        print(f"mesh sharded rank {rank} collectives per pass: {json.dumps(coll)}")
+        print(f"mesh sharded rank {rank} sharded_payload_bytes of the last pass: "
+              f"{r['stats'].get('collective_payload_bytes')}")
+        print(f"mesh sharded rank {rank} stats (last pass): {json.dumps(r['stats'])}")
+        for key, bw, A, args, scal, window, skip, err in r["kernels"]:
+            print(f"mesh sharded rank {rank}: {key} (bw={bw}, A={A}) equal to the plain "
+                  f"version in the rank (max_abs_err {err})")
+            if rank == 0:
+                captured.append((key, (tuple(torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                                             for a in args), scal, window, skip)))
+    print(f"mesh sharded parity vs oracle: {n_par} reads byte-identical, the same bytes on "
+          f"both ranks ({len(lines)} PAF lines); launches over both ranks {launches}")
+    return captured, launches
+
+
 def main() -> int:
     import torch
 
@@ -797,14 +944,14 @@ def main() -> int:
     di = mapper.dev_idx
     print(f"set-up {time.perf_counter() - t0:.1f} s: {idx.keys.shape[0]} keys, "
           f"dm_entry={di.dm_entry} p={di.dm_bits} S={di.dm_slots}")
-    total: dict = {}  # main-path launches per variant/shape, all phases
+    total: dict = {}  # main-path launches per variant/shape, single-device phases
 
     # ---- lite headline: 16,384 reads, 1 warm + 5 timed passes --------
     lines, times, stats, cap_lite = _map_phase("lite headline", mapper, reads, 5,
                                                ["chain_dp_aux/static"], total)
     mapped = {l.split("\t", 1)[0] for l in lines}
     aligned_bp = sum(len(s) for n, s in reads if n in mapped)
-    dt = _median(times)
+    dt = dt_lite = _median(times)
     print(f"lite headline median pass {dt:.4f} s, aligned {aligned_bp / dt:.1f} bp/s, "
           f"{len(lines)} PAF lines")
     if stats.get("host_reads", 0) >= 0.01 * len(reads):
@@ -990,7 +1137,13 @@ def main() -> int:
             raise AssertionError(f"{fn.__name__}: card != CPU")
         print(f"extension {fn.__name__}: 64 pairs, card == CPU; first scores "
               f"{got[0][:4].tolist()}")
-    print(f"main-path launches per kernel/shape, all phases: {total}")
+
+    # ---- the multi-GPU mapper: a 1-rank NCCL mesh, the CLI, 2 gloo ranks --
+    cap_mesh_dp, n_mesh_dp = _mesh_dp_phase(idx, cp, mp, reads, lines, dt_lite, stats)
+    _mesh_cli_phase(cli, cli_dir, genome, reads)
+    cap_mesh_sh, n_mesh_sh = _mesh_sharded_phase(cp, mp, cli_dir)
+    print(f"main-path launches per kernel/shape, the single-device phases: {total}; "
+          f"mesh dp: {n_mesh_dp}; mesh sharded (both ranks): {n_mesh_sh}")
 
     # ---- kernels against their plain versions --------------------------
     # on the inputs each path's warm pass gave its kernel, every band and
@@ -1018,10 +1171,22 @@ def main() -> int:
          None, 1),
         ("chain_dp_prune (CLI chain)", None, cap_cli, "chain_dp_prune/lane", None, 1),
     ]
+    # the single-device rows count their launches over every single-device
+    # phase; the mesh rows over their own phase's timed passes
+    rows = [(*r, total) for r in rows] + [
+        ("chain_dp_aux (mesh dp, NCCL 1 rank)", 291, cap_mesh_dp, "chain_dp_aux/static",
+         None, 5, n_mesh_dp),
+        ("chain_dp_aux (mesh sharded, 2 gloo ranks)", 291, cap_mesh_sh,
+         "chain_dp_aux/static", None, 5, n_mesh_sh),
+        ("chain_dp_aux (mesh sharded long reads, 2 gloo ranks)", 553, cap_mesh_sh,
+         "chain_dp_aux/lane", None, 1, n_mesh_sh),
+    ]
     from minimap2_rs_torch.kernels import chain_dp as kchain
 
-    for name, line, cap, key, window, plain_reps in rows:
-        entries = _launched(cap, key)
+    for name, line, cap, key, window, plain_reps, counts in rows:
+        # a phase's dict of captures, or the ranks' [(key, entry)] list
+        entries = ([e for k, e in cap if k == key] if isinstance(cap, list)
+                   else _launched(cap, key))
         variant = key.split("/")[0]
         aux = variant.startswith("chain_dp_aux")
         shapes = [(tuple(a[0].shape), s.bw, window or w) for a, s, w, _skip in entries]
@@ -1032,7 +1197,7 @@ def main() -> int:
             entries, tab, aux, window, plain_reps)
         timed = tuple(args[0].shape)
         bound_ms, bound_by, pairs = _chain_bound(args, scal, win, 4 if aux else 2, tab, skip)
-        n_launch = total.get(held, 0)
+        n_launch = counts.get(held, 0)
         design = kchain.design(timed[1], win, aux, skip)
         n_rows = int(_valid_rows(args[0]).max())
         extra = {"design": design, "rows": n_rows,
@@ -1099,6 +1264,7 @@ def main() -> int:
 
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
+    torch.distributed.destroy_process_group()
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

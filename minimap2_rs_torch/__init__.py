@@ -5,9 +5,11 @@ keeps the name of its JAX counterpart, and the tests hold each one
 against it bit for bit. The port covers both mapping paths of
 `models.mapper.Mapper.map_reads_paf`, the default "lite" path and the
 general path (min_cnt < 2: secondaries, s2, the host rescue decision),
-for odd k <= 27 and non-HPC queries, and the `align` command
-(`python -m minimap2_rs_torch.cli align`). The chaining DP is a CUDA
-kernel written for Hopper (`csrc/chain_dp.cu`) in two variants.
+for every k <= 28 and HPC indexes; the device index build; the CLI's
+`index`, `anchors`, `chain` and `align`; and the multi-GPU mapper
+(`parallel/`, `models.mesh_mapper`: a mesh of torch.distributed ranks,
+the index hash-range-sharded). The chaining DP and the even-k window
+scan are CUDA kernels written for Hopper (`csrc/`).
 
 The port imports torch and numpy, never jax, and nothing of
 `minimap2_rs_tpu`: it keeps its own copies of the host modules

@@ -7,6 +7,8 @@
     python -m minimap2_rs_torch.cli chain ref.fa reads.fa --engine device
     python -m minimap2_rs_torch.cli align ref.fa reads.fa -n 1 -m 10
     python -m minimap2_rs_torch.cli align ref.fa reads.fa --device cpu
+    torchrun --nproc-per-node 4 -m minimap2_rs_torch.cli align ref.fa reads.fa \
+        --mesh 2 --index-shards 2
 
 `--engine device` (the default `auto` for anchors, chain and align) runs
 on `--device`, cuda unless asked otherwise; a cuda request on a machine
@@ -16,13 +18,18 @@ the host. `--engine host` runs the reference-faithful host oracle.
 port's chunked device build. `anchors` sends a query whose minimizers
 or anchors overflow the device capacities to the host oracle, as the
 JAX CLI does, and says so on stderr. `--trace-dir` writes a
-torch.profiler trace of the mapping. The multi-device flags (--mesh,
---index-shards) are not ported.
+torch.profiler trace of the mapping. `align --mesh DP --index-shards IX`
+maps over a (DP, IX) mesh of ranks (models/mesh_mapper.py): one rank a
+process, as torchrun starts them (RANK, WORLD_SIZE, LOCAL_RANK; rank r
+on cuda:LOCAL_RANK), the index hash-range-sharded when IX > 1. DP * IX
+must equal the launch's ranks (`--mesh 1` runs without torchrun), and
+only rank 0 writes the PAF.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 import time
 
@@ -92,11 +99,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--first-only", action="store_true",
                    help="map only the first query record (reference behavior)")
     p.add_argument("--stats", action="store_true",
-                   help="print a per-stage timing breakdown to stderr")
+                   help="print a per-stage timing breakdown (and, on a mesh, "
+                        "rank 0's collectives) to stderr")
     p.add_argument("--trace-dir", default=None,
                    help="write a torch.profiler trace of the mapping here")
     p.add_argument("--batch-size", type=int, default=1024,
                    help="max reads per device program invocation")
+    p.add_argument("--mesh", type=int, default=0, metavar="DP",
+                   help="map over a DP-way mesh of ranks (0 = single device; "
+                        "DP * IX must equal the launch's ranks)")
+    p.add_argument("--index-shards", type=int, default=1, metavar="IX",
+                   help="hash-range-shard the index over IX ranks")
     return ap
 
 
@@ -259,6 +272,8 @@ def anchors_or_chain(args, ap) -> int:
 
 
 def align(args, ap) -> int:
+    if args.engine == "host" and (args.mesh or args.index_shards > 1):
+        ap.error("--mesh and --index-shards need the device engine, not --engine host")
     device = None if args.engine == "host" else _device(args, ap)
     w, k = apply_preset(args.preset, args.w, args.k) if args.preset else (args.w, args.k)
     idx = load_index(args.ref_fasta, w, k, 1 if args.hpc else 0)
@@ -276,6 +291,8 @@ def align(args, ap) -> int:
     )
     t0 = time.time()
     stats: dict = {}
+    if device is not None and (args.mesh or args.index_shards > 1):
+        return _align_mesh(args, ap, idx, reads, cp, mp, t0)
     with device_trace(args.trace_dir, device):
         if device is None:
             lines = map_reads(idx, reads, cp, mp)
@@ -287,6 +304,41 @@ def align(args, ap) -> int:
                                               batch_size=args.batch_size)
             blob = mapper.map_reads_paf(reads)
             stats = dict(mapper.stats)
+    _write_paf(args, blob, stats, reads, t0)
+    return 0
+
+
+def _align_mesh(args, ap, idx, reads, cp, mp, t0) -> int:
+    """align over a (--mesh, --index-shards) mesh of this launch's ranks;
+    rank 0 writes the PAF. A process group this call starts, it ends."""
+    import torch.distributed as dist
+
+    from .models.mesh_mapper import make_mesh_mapper
+
+    started = not dist.is_initialized()
+    try:
+        try:
+            mapper = make_mesh_mapper(
+                idx, cp, mp, dp=args.mesh or None, ix=args.index_shards,
+                index_sharded=args.index_shards > 1, device=args.device,
+                batch_size=args.batch_size,
+            )
+        except ValueError as e:
+            ap.error(str(e))
+        with device_trace(args.trace_dir, mapper.device):
+            blob = mapper.map_reads_paf(reads)
+        if mapper.mesh.rank == 0:
+            _write_paf(args, blob, dict(mapper.stats), reads, t0)
+            if args.stats:
+                print(f"[mm2t] collectives of rank 0: {json.dumps(mapper.mesh.stats)}",
+                      file=sys.stderr)
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+    return 0
+
+
+def _write_paf(args, blob: bytes, stats: dict, reads, t0: float) -> None:
     if args.stats:
         total_bp = sum(len(s) for _, s in reads)
         print_stage_stats(stats, len(reads), total_bp, time.time() - t0)
@@ -296,7 +348,6 @@ def align(args, ap) -> int:
     else:
         sys.stdout.buffer.write(blob)
         sys.stdout.buffer.flush()
-    return 0
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -398,6 +398,12 @@ class Mapper:
         out2 = native_encode_pack2(seqs, bucket // 4, _NEX_CAP)
         if out2 is not None:
             return out2[0], out2[1], "2bit"
+        return self._encode4(seqs, B, bucket), None, "4bit"
+
+    @staticmethod
+    def _encode4(seqs: list[bytes], B: int, bucket: int) -> np.ndarray:
+        """The 4-bit wire of B padded reads: (B, bucket // 2) uint8, two
+        nt4 codes a byte (native, or NumPy without the runtime)."""
         packed4 = native_encode_pack4(seqs, bucket // 2)
         if packed4 is None:
             codes = np.full((B, bucket), 4, dtype=np.uint8)
@@ -407,13 +413,48 @@ class Mapper:
                 codes[bi, : len(s)] = enc[off : off + len(s)]
                 off += len(s)
             packed4 = codes[:, 0::2] | (codes[:, 1::2] << 4)
-        return packed4, None, "4bit"
+        return packed4
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+        """A host array on the device."""
         t = torch.from_numpy(arr)
         if self.device.type == "cuda":
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
+
+    def _stage_kw(self) -> dict:
+        """The index's and map parameters' statics of a device program."""
+        return dict(w=self.idx.w, k=self.idx.k, q_occ_max=self.mp.q_occ_max,
+                    q_occ_frac=self.mp.q_occ_frac)
+
+    def _rank_rows(self, arr: np.ndarray) -> np.ndarray:
+        """The rows of a lite batch array (the wire, the lengths) that this
+        process maps: all of them (MeshMapper: its rank's)."""
+        return arr
+
+    def _device_stage_lite(self, d_wire, d_len, d_nex, scalars: ChainScalars, *,
+                           wide: bool, M: int, A: int, window: int, wire: str,
+                           max_chain_skip: int | None, stats: dict) -> torch.Tensor:
+        """The lite program on one padded batch (its _rank_rows): its wire
+        rows. stats is the submitting thread's stats dict."""
+        return _fused_map_stage_lite(
+            self.dev_idx, d_wire, d_len, d_nex,
+            scalars, self._scalars_wide, self.mid_occ, self._tlens_dev,
+            self.cp.rmq_rescue_size, self.cp.rmq_rescue_ratio, self._log2_tab,
+            flag_window_ovf=window < min(self.cp.max_chain_iter, A), wide=wide,
+            M=M, A=A, window=window, wire=wire, max_chain_skip=max_chain_skip,
+            **self._stage_kw(),
+        )
+
+    def _device_stage(self, d_wire, d_len, d_nex, scalars: ChainScalars, *,
+                      M: int, A: int, window: int, wire: str,
+                      max_chain_skip: int | None) -> torch.Tensor:
+        """The general program on one padded batch: its packed buffer."""
+        return _fused_map_stage(
+            self.dev_idx, d_wire, d_len, d_nex, scalars, self.mid_occ, self._log2_tab,
+            M=M, A=A, window=window, wire=wire, max_chain_skip=max_chain_skip,
+            **self._stage_kw(),
+        )
 
     def _submit_groups(self, reads, groups, scalars, lite=True, mult=None,
                        band="auto", sink=None, stats=None):
@@ -445,35 +486,30 @@ class Mapper:
                 B = self._quantize_b(len(chunk), B_max)
                 lengths = np.zeros(B, dtype=np.int32)
                 lengths[: len(chunk)] = [len(reads[ri][1]) for ri in chunk]
+                t0 = time.perf_counter()
                 wire_arr, nex, wire = self._encode(
                     [reads[ri][1] for ri in chunk], B, bucket
                 )
+                _add_stats(stats, "encode", time.perf_counter() - t0)
+                if lite:
+                    wire_arr, lengths = self._rank_rows(wire_arr), self._rank_rows(lengths)
                 _add_stats(stats, "h2d_bytes", wire_arr.nbytes + lengths.nbytes
                            + (nex.nbytes if nex is not None else 0))
                 if nex is None:
                     nex = np.zeros(1, dtype=np.int32)
-                d_wire, d_len, d_nex = (
-                    self._to_device(a) for a in (wire_arr, lengths, nex)
-                )
-                common = dict(w=self.idx.w, k=self.idx.k,
-                              q_occ_max=self.mp.q_occ_max,
-                              q_occ_frac=self.mp.q_occ_frac,
-                              M=M, A=A, window=window, wire=wire,
+                d_wire = self._to_device(wire_arr)
+                d_len = self._to_device(lengths)
+                d_nex = self._to_device(nex)
+                common = dict(M=M, A=A, window=window, wire=wire,
                               max_chain_skip=_chain_skip_cfg(self.cp))
+                t0 = time.perf_counter()
                 if lite:
-                    out = _fused_map_stage_lite(
-                        self.dev_idx, d_wire, d_len, d_nex,
-                        scalars, self._scalars_wide, self.mid_occ, self._tlens_dev,
-                        self.cp.rmq_rescue_size, self.cp.rmq_rescue_ratio,
-                        self._log2_tab,
-                        flag_window_ovf=window < min(self.cp.max_chain_iter, A),
-                        wide=wide_prog, **common,
-                    )
+                    out = self._device_stage_lite(d_wire, d_len, d_nex, scalars,
+                                                  wide=wide_prog, stats=stats, **common)
                 else:
-                    out = _fused_map_stage(
-                        self.dev_idx, d_wire, d_len, d_nex, scalars,
-                        self.mid_occ, self._log2_tab, **common,
-                    )
+                    out = self._device_stage(d_wire, d_len, d_nex, scalars, **common)
+                # host seconds issuing the stage (its collectives included)
+                _add_stats(stats, "stage_issue", time.perf_counter() - t0)
                 ready = None
                 if out.is_cuda:
                     # start the D2H copy now; the drain waits on the event

@@ -16,12 +16,16 @@ the hashed key. Two of its layouts are probed here:
   * dm_entry == 4, wide: S entries [key_hi, key_lo, start, count] per
     row. Small genomes get it (50 kb: p=12, S=16).
 
+The sharded index of the multi-GPU path (parallel/sharded_index.py)
+keeps the compact layout the planner would fuse: dm_entry == 2, a
+(2^p, S) table of metas [fp | count << fp_bits] and a flat start plane
+`dm_start`, probed in two phases (a row gather of the S metas, then one
+1-D gather of the hit slot's start).
+
 Above the 2 GB cap the planner gives no direct table, and the lookup
 falls back to the prefix probe (JAX index_ops.py:504-521): the prefix
 table gives each key's bucket base in the padded key table `kv`, and S
-consecutive rows are compared there. Only the sharded index builder of
-the multi-device path makes the compact two-phase entry (dm_entry == 2),
-which raises NotImplementedError here.
+consecutive rows are compared there.
 
 Tables are stored as int32 tensors holding the uint32 words' bits.
 """
@@ -55,8 +59,9 @@ class DeviceIndex:
     kv: torch.Tensor      # (U + S, 4) [key_hi, key_lo, start, count], or sentinel rows
     pos: torch.Tensor     # (1, P) abs_pos<<1|strand (packed) or (2, P) [rid], [pos<<1|strand]
     prefix: torch.Tensor  # (2^prefix_bits + 1,) lower bounds, or sentinel
-    dm: torch.Tensor      # direct-mapped table (2^dm_bits, 4 * S) or fused (2^dm_bits, S + 1)
+    dm: torch.Tensor      # direct-mapped table (2^dm_bits, entry * S) or fused (2^dm_bits, S + 1)
     seq_cum: torch.Tensor | None   # (n_seq + 1,) cumulative lengths (packed pos)
+    dm_start: torch.Tensor | None = None  # (2^dm_bits * S,) start plane of dm_entry == 2
     prefix_shift: int = 0
     bucket_slots: int = 8
     n_keys: int = 0
@@ -172,7 +177,8 @@ def plan_direct_layout(
     if entry == 2:
         dm, pos_perm = fill_direct_table_fused(keys, starts, counts, key_bits, p, S)
         return dm, p, S, 3, pos_perm
-    return fill_direct_table(keys, starts, counts, p, S), p, S, entry, None
+    dm, _ = fill_direct_table(keys, starts, counts, key_bits, p, S, entry)
+    return dm, p, S, entry, None
 
 
 def fill_direct_table_fused(
@@ -245,12 +251,18 @@ def choose_direct_layout(
 
 
 def fill_direct_table(
-    keys: np.ndarray, starts: np.ndarray, counts: np.ndarray, p: int, S: int,
-) -> np.ndarray:
-    """The 4-word direct-mapped table at layout (p, S): row p holds S
-    entries [key_hi, key_lo, start, count]; empty entries carry key
-    uint64-max and count 0."""
+    keys: np.ndarray, starts: np.ndarray, counts: np.ndarray,
+    key_bits: int, p: int, S: int, entry: int,
+):
+    """One direct-mapped table at a forced (p, S, entry) layout (JAX
+    index_ops.py:385-422), shared by the planner and the sharded builder,
+    which needs one layout across shards. entry 4: row p holds S entries
+    [key_hi, key_lo, start, count]; empty entries carry key uint64-max
+    and count 0; returns (table, None). entry 2: the (2^p, S) metas
+    [fp | count << fp_bits] and the flat (2^p * S,) start plane; returns
+    (metas, starts)."""
     U = int(keys.shape[0])
+    fp_bits = key_bits - p
     pref = (keys & np.uint64((1 << p) - 1)).astype(np.int64)
     # within-bucket rank (buckets by low bits are not sorted-contiguous)
     order = np.argsort(pref, kind="stable")
@@ -259,13 +271,20 @@ def fill_direct_table(
     rank = np.empty(U, dtype=np.int64)
     rank[order] = np.arange(U) - first_sorted
     slot = pref * S + rank
+    if entry == 2:
+        meta = np.zeros(((1 << p) * S,), dtype=np.uint32)
+        start_plane = np.zeros(((1 << p) * S,), dtype=np.uint32)
+        fp = (keys >> np.uint64(p)).astype(np.uint32)
+        meta[slot] = fp | (counts.astype(np.uint32) << np.uint32(fp_bits))
+        start_plane[slot] = starts.astype(np.uint32)
+        return meta.reshape(1 << p, S), start_plane
     dm = np.full(((1 << p) * S, 4), U32_MASK, dtype=np.uint32)
     dm[:, 3] = 0
     dm[slot, 0] = (keys >> np.uint64(32)).astype(np.uint32)
     dm[slot, 1] = (keys & np.uint64(U32_MASK)).astype(np.uint32)
     dm[slot, 2] = starts.astype(np.uint32)
     dm[slot, 3] = counts.astype(np.uint32)
-    return dm.reshape(1 << p, 4 * S)
+    return dm.reshape(1 << p, entry * S), None
 
 
 def gather_rows(table: torch.Tensor, base: torch.Tensor, S: int) -> torch.Tensor:
@@ -279,8 +298,9 @@ def gather_rows(table: torch.Tensor, base: torch.Tensor, S: int) -> torch.Tensor
 def index_lookup(idx: DeviceIndex, q: torch.Tensor):
     """For each query key (int64, any shape): (start, count) int64 of its
     occurrence block, count 0 when absent (Index::get, index.rs:143-154).
-    One row gather on the direct-mapped table; the two-gather prefix
-    probe when there is none."""
+    One row gather on the direct-mapped table (two phases for the
+    sharded index's compact entry); the two-gather prefix probe when
+    there is none."""
     if not idx.dm_slots:
         p = (q >> idx.prefix_shift).clamp(0, idx.prefix.shape[0] - 2)
         base = idx.prefix.to(torch.int64)[p]
@@ -311,6 +331,20 @@ def index_lookup(idx: DeviceIndex, q: torch.Tensor):
         count = torch.where(hit, cnts, 0).amax(dim=-1)
         start = torch.where(count > 0, base + before, 0)
         return start, count
+    if idx.dm_entry == 2:
+        # two-phase probe (JAX index_ops.py:480-503): the S metas, the
+        # hit slot (distinct keys of a bucket have distinct fps: at most
+        # one hit), then one 1-D gather of its start; empty slots carry
+        # count 0, already "absent"
+        fpb = idx.dm_fp_bits
+        p = (q & ((1 << idx.dm_bits) - 1)).clamp(0, idx.dm.shape[0] - 1)
+        meta = _u32(idx.dm[p])  # (..., S)
+        fpm = (1 << fpb) - 1
+        hit = (meta & fpm) == ((q >> idx.dm_bits) & fpm).unsqueeze(-1)
+        slot = hit.to(torch.int8).argmax(dim=-1)
+        start = torch.where(hit.any(dim=-1), _u32(idx.dm_start[p * S + slot]), 0)
+        count = torch.where(hit, meta >> fpb, 0).amax(dim=-1)
+        return start, count
     if idx.dm_entry == 4:
         p = (q & ((1 << idx.dm_bits) - 1)).clamp(0, idx.dm.shape[0] - 1)
         rows = _u32(idx.dm[p]).reshape(*q.shape, S, 4)
@@ -320,7 +354,4 @@ def index_lookup(idx: DeviceIndex, q: torch.Tensor):
         start = torch.where(hit, rows[..., 2], 0).amax(dim=-1)
         count = torch.where(hit, rows[..., 3], 0).amax(dim=-1)
         return start, count
-    raise NotImplementedError(
-        f"dm_entry == {idx.dm_entry} (the sharded index's two-phase table) is "
-        "not ported: it belongs to the multi-GPU path"
-    )
+    raise ValueError(f"unknown direct-table entry {idx.dm_entry}")

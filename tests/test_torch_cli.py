@@ -4,9 +4,12 @@ gives the same PAF bytes for the default flags, the general path
 (-n 1 -m 10), the k=19 preset (-x map-hifi), -H, --engine host and
 --trace-dir; `index` the same stdout and dumped .mmi bytes for each
 engine; `anchors` and `chain` the same stdout for each engine at odd and
-even k. A cuda request without CUDA, and the multi-device flags, exit
+even k; `align --mesh 1` the JAX CLI's `--mesh 1` bytes, and 2 ranks
+under torchrun the single-device bytes. A cuda request
+without CUDA, and a mesh of more ranks than the launch has, exit
 non-zero."""
 
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -78,16 +81,20 @@ def test_align_without_cuda_exits_nonzero(fixtures):
 
 
 @pytest.mark.parametrize("flag", [["-H"], ["--mesh", "2"], ["--index-shards", "2"],
-                                  ["--trace-dir", "t"], ["--engine", "device"]])
+                                  ["--trace-dir", "t"], ["--engine", "device"],
+                                  ["--mesh", "1"], ["--engine", "host", "--mesh", "1"]])
 def test_unsupported_flags_are_rejected(fixtures, flag):
-    """The multi-device flags are still rejected. -H, --trace-dir and
-    --engine device, once rejected, now give the JAX CLI's bytes."""
+    """--mesh 2 and --index-shards 2 need more ranks than a launch
+    without torchrun has, and --mesh with --engine host has no device to
+    map on: they exit non-zero, leaving no process group. -H,
+    --trace-dir, --engine device and --mesh 1 give the JAX CLI's bytes."""
     d, ref, reads = fixtures
     argv = ["align", ref, reads, "-o", str(d / "f.paf")]
-    if flag[0] in ("--mesh", "--index-shards"):
+    if flag[:2] in (["--mesh", "2"], ["--index-shards", "2"], ["--engine", "host"]):
         with pytest.raises(SystemExit) as e:
             tcli.main([*argv, "--device", "cpu", *flag])
         assert e.value.code != 0
+        assert not torch.distributed.is_initialized()
         return
     port_flag = [flag[0], str(d / "trace")] if flag[0] == "--trace-dir" else flag
     assert tcli.main([*argv, "--device", "cpu", *port_flag]) == 0
@@ -97,6 +104,27 @@ def test_unsupported_flags_are_rejected(fixtures, flag):
     assert got == (d / "f.paf").read_bytes() and got.count(b"\n") >= 15
     if flag[0] == "--trace-dir":
         assert (d / "trace" / "trace.json").stat().st_size > 0
+
+
+def test_align_mesh_under_torchrun(fixtures):
+    """align --mesh 1 --index-shards 2 under torchrun (2 gloo ranks on the
+    CPU, the group from its environment): rank 0 writes the single-device
+    bytes and, with --stats, its collectives."""
+    d, ref, reads = fixtures
+    out = d / "torchrun.paf"
+    res = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "minimap2_rs_torch.cli", "align", ref, reads,
+         "--mesh", "1", "--index-shards", "2", "--device", "cpu", "--stats",
+         "-o", str(out)],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "OMP_NUM_THREADS": "1"},
+    )
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stderr.count("[mm2t] collectives of rank 0:") == 1
+    assert tcli.main(["align", ref, reads, "--device", "cpu", "-o", str(d / "one.paf")]) == 0
+    assert out.read_bytes() == (d / "one.paf").read_bytes()
+    assert out.read_bytes().count(b"\n") >= 15
 
 
 def test_align_host_engine_equals_jax(fixtures):

@@ -28,7 +28,9 @@ def test_port_imports_no_jax():
     mods = [m[: -len(".__init__")] if m.endswith(".__init__") else m for m in mods]
     for m in ("models.mapper", "models.index_builder", "cli", "ops.sketch_scan",
               "ops.index_build", "ops.extend_ops", "kernels.window_scan", "config",
-              "io.fasta", "oracle.pipeline", "runtime.host", "utils.profiling"):
+              "io.fasta", "oracle.pipeline", "runtime.host", "utils.profiling",
+              "parallel.mesh", "parallel.sharded_index", "parallel.pipeline",
+              "parallel.ranks", "models.mesh_mapper"):
         assert f"minimap2_rs_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -44,7 +46,8 @@ def test_port_imports_no_jax():
 
 
 def _port_sources():
-    return sorted((ROOT / "minimap2_rs_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted((ROOT / "minimap2_rs_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "dryrun_multigpu_torch.py"]
 
 
 def _imported(tree: ast.AST):
@@ -59,8 +62,9 @@ def _imported(tree: ast.AST):
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_source_never_imports_jax_package(path):
-    """No import statement of the port or of chip_smoke.py, at module level
-    or inside a function, names minimap2_rs_tpu or jax."""
+    """No import statement of the port, of chip_smoke.py or of
+    dryrun_multigpu_torch.py, at module level or inside a function, names
+    minimap2_rs_tpu or jax."""
     names = list(_imported(ast.parse(path.read_text(), str(path))))
     bad = [n for n in names if n.split(".")[0] in ("minimap2_rs_tpu", "jax", "jaxlib")]
     assert not bad, bad

@@ -4,6 +4,8 @@ direct table (small genome) and the fused single-gather table (the
 5 Mbp headline genome). The tables must be the same bytes: they are the
 state the port carries over from the reference layout."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -66,15 +68,33 @@ def test_index_lookup_matches_jax(both):
 
 
 def test_unported_layouts_raise(both):
-    """The sharded index's two-phase entry (dm_entry == 2) is still not
-    ported and raises; the prefix fallback (no direct table), once
-    unported, now probes the full kv/prefix tables and finds every key
-    block the direct table finds."""
-    _glen, idx, t, _j = both
-    q = torch.zeros(4, dtype=torch.int64)
-    bad = tidx.DeviceIndex(**{**t.__dict__, "dm_entry": 2})
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tidx.index_lookup(bad, q)
+    """The sharded index's two-phase entry (dm_entry == 2), once
+    unported, now probes as the JAX index_lookup does on the same compact
+    tables (built at the planner's p and S); the prefix fallback (no
+    direct table), once unported, probes the full kv/prefix tables and
+    finds every key block the direct table finds."""
+    _glen, idx, t, j = both
+    kb = 2 * idx.k
+    meta, start_plane = tidx.fill_direct_table(idx.keys, idx.starts, idx.counts, kb,
+                                               t.dm_bits, t.dm_slots, 2)
+    jmeta, jstart = jidx.fill_direct_table(idx.keys, idx.starts, idx.counts, kb,
+                                           t.dm_bits, t.dm_slots, 2)
+    np.testing.assert_array_equal(meta, np.asarray(jmeta))
+    np.testing.assert_array_equal(start_plane, np.asarray(jstart))
+    two = tidx.DeviceIndex(**{**t.__dict__, "dm": tidx._t32(meta, "cpu"), "dm_entry": 2,
+                              "dm_start": tidx._t32(start_plane, "cpu")})
+    jtwo = dataclasses.replace(j, dm=jnp.asarray(jmeta), dm_start=jnp.asarray(jstart),
+                               dm_entry=2)
+    rng = np.random.default_rng(1)
+    q = np.concatenate([rng.choice(idx.keys, size=1024).astype(np.int64),
+                        rng.integers(0, 1 << kb, size=1023, dtype=np.int64), [0]])
+    start, count = tidx.index_lookup(two, torch.from_numpy(q))
+    js, jc = jidx.index_lookup(jtwo, U64Pair(jnp.asarray((q >> 32).astype(np.uint32)),
+                                             jnp.asarray((q & 0xFFFFFFFF).astype(np.uint32))))
+    np.testing.assert_array_equal(start.numpy(), np.asarray(js).astype(np.int64))
+    np.testing.assert_array_equal(count.numpy(), np.asarray(jc).astype(np.int64))
+    want = np.searchsorted(idx.keys, q[:1024])
+    np.testing.assert_array_equal(count.numpy()[:1024], idx.counts[want])
     kv, prefix, shift, S = tidx.plan_prefix_layout(idx.keys, 2 * idx.k)
     kv[: idx.keys.shape[0], 2] = idx.starts.astype(np.uint32)
     kv[: idx.keys.shape[0], 3] = idx.counts.astype(np.uint32)
