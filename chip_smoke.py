@@ -51,14 +51,43 @@ Mapper.map_reads_paf:
     captured chain-kernel inputs to the plain versions. This stands in
     for the 100 Mbp genome on 4 cards (bench.py:475-531): ix = 2 at
     10 Mbp is the smallest layout whose shards take dm_entry 2.
+  * ont_10pct: 256 reads of 1-2 kb at 10% error (seed 19) on the
+    headline index, parity on all of them (bench.py:391-399);
+  * tier 2 and the lazy wide pass, forced: undersized anchor slots on a
+    400 kb genome send 48 or more reads to the 4x tier, and chimeras in
+    an 8 kb bucket re-run in the lazy wide pass (the cases of
+    tests/test_torch_mapper.py), parity on every read;
+  * large: a 100 Mbp random genome (seed 7; the native build's time
+    and per-stage seconds, runtime/host.last_build_stage_s), 16,384
+    reads of 500-1000 bp (seed 9), parity on every 64th
+    (bench.py:475-531), the median of 3 passes.
 Every mapping phase is byte-identical to the host oracle (default
 parameters unless said otherwise).
 
-Each mapping phase's warm pass, and the CLI phase, keep the inputs their
-kernel launches got (one per kernel, shape class, band and capacity);
-the timed passes count the launches per kernel and shape. Each
-long-read phase then maps once more with CUDA events around every lane
-kernel launch and prints their summed time beside the pass time.
+Every single-device Mapper issues its device stages as captured
+programs (models/programs.py: a key's first batch runs eagerly, its
+second captures a CUDA graph, later ones replay it). Each mapping phase
+starts with a first pass (and, on captured programs, a second) that
+keep the kernels' inputs (one per kernel, shape class, band and
+capacity; outside a capture only) and are timed and printed beside the
+medians; each such phase's timed passes must then show no eager stage
+and a replay for every stage. The lite and general headline and both
+long-read phases also run a twin Mapper with graphs=False, in turns
+with the captured one (a b b a ...): the two must give the same bytes,
+and both medians and their host seconds (submit, encode, upload,
+stage_issue, d2h_issue, d2h+wait, post, ...) are printed side by side.
+Each mapper's timed passes count the launches per kernel and shape
+apart, each replay adding the launches its capture recorded
+(kernels/counts.py); every path must launch the phase's kernels, and
+only the captured (main) path's counts go to the kernel rows. Each of
+those eight mappers then maps one pass under torch.profiler (CUDA
+activity): the card's kernels and copies and the host's launch calls
+per device stage, the device busy share and the lane kernels' share of
+the pass; the chain-DP and window-scan kernels in the trace must match
+the pass's counted launches, and on the captured mappers the kernels of
+each graph launch must match its program's recorded launches. The
+captured mappers print their live programs, the seconds of each capture
+and the graph pool's bytes.
 Afterwards each kernel is held bit for bit against its plain PyTorch
 version on those inputs (the window scan's long shape on 8 rows), and
 the dynamic-window shape, which no mapping path launches, on the
@@ -331,52 +360,6 @@ def _scan_vs_plain(entries, max_rows=None):
     plain_ms = _time_ms(lambda: _window_scan_ref(*args[:4], w, k, args[4]), reps=1,
                         warm=False)
     return ms, device_ms, prev_ms, plain_ms, args
-
-
-@contextlib.contextmanager
-def _lane_timer():
-    """While the block runs, CUDA events bracket every launch of a lane
-    kernel (the _launch calls whose entry ends in "_lane"); yields the
-    list of (start, end) event pairs."""
-    import torch
-
-    from minimap2_rs_torch.kernels import chain_dp as kchain
-
-    orig = kchain._launch
-    events = []
-
-    def timed(entry, *args, **kw):
-        if not entry.endswith("_lane"):
-            return orig(entry, *args, **kw)
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        out = orig(entry, *args, **kw)
-        t1.record()
-        events.append((t0, t1))
-        return out
-
-    kchain._launch = timed
-    try:
-        yield events
-    finally:
-        kchain._launch = orig
-
-
-def _lane_share(tag, mapper, reads):
-    """One more pass of `reads`, with every lane kernel launch timed:
-    prints the pass time, the lane launches' summed time and its share."""
-    import torch
-
-    with _lane_timer() as events:
-        t0 = time.perf_counter()
-        mapper.map_reads_paf(reads)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-    lane_ms = sum(a.elapsed_time(b) for a, b in events)
-    print(f"{tag} lane kernel over one pass: {len(events)} launches, "
-          f"{lane_ms:.4f} ms summed (CUDA events), pass {dt:.4f} s, "
-          f"share {lane_ms / 1e3 / dt:.4f}")
 
 
 def _synthetic_chains(rng, B, A, n_of, r_off=0, q_off=0, step=40, jitter=3):
@@ -687,14 +670,15 @@ def _kernel_modules():
 
 def _counted(tag, fn, keys, total):
     """Run fn() with every launch count set to 0 just before it and read
-    just after; the counts are added to `total`, and the run fails unless
-    each of `keys` (kernel/shape) launched. Returns (fn(), launches)."""
+    just after; the counts are added to `total` (unless None), and the
+    run fails unless each of `keys` (kernel/shape) launched. Returns
+    (fn(), launches)."""
     mods = _kernel_modules()
     for m in mods:
         m.reset_launches()
     out = fn()
     launches = {k: v for m in mods for k, v in m.launches.items() if v}
-    for k, v in launches.items():
+    for k, v in (launches.items() if total is not None else ()):
         total[k] = total.get(k, 0) + v
     for key in keys:
         if not launches.get(key):
@@ -720,35 +704,247 @@ def _capturing():
             captured.update(c)
 
 
-def _map_phase(tag, mapper, reads, passes, keys, total):
-    """One warm pass, which keeps the kernels' inputs (_capturing), then
-    `passes` timed passes whose launches are counted (_counted; `keys`
-    must launch). Returns (PAF lines of the last pass, pass times, stats
-    of the last pass, captured inputs)."""
+# the stats that show which path issued a pass's device stages
+PROGRAM_STATS = ("device_stages", "eager_stages", "graph_captures", "graph_replays", "capture")
+# the host seconds of a pass printed for each path, side by side
+HOST_STATS = ("submit", "encode", "upload", "stage_issue", "d2h_issue", "d2h+wait", "post",
+              "wide", "tier2", "rescue")
+
+
+def _program_check(tag, mapper, summed: dict) -> None:
+    """The timed passes' stage accounting (Mapper.stats summed over them):
+    a mapper with captured programs issued every device stage as a replay
+    (no eager stage, a replay for every stage); an eager one issued every
+    stage eagerly and replayed none."""
+    n = summed.get("device_stages", 0)
+    if mapper.programs is not None:
+        ok = summed.get("eager_stages", 0) == 0 and summed.get("graph_replays", 0) >= n > 0
+    else:
+        ok = summed.get("eager_stages", 0) == n > 0 and not summed.get("graph_replays")
+    if not ok:
+        raise AssertionError(f"[{tag}] stages of the timed passes: " + json.dumps(
+            {k: summed.get(k, 0) for k in PROGRAM_STATS}))
+
+
+def _programs_line(mapper) -> str:
+    """A captured mapper's programs: keys, capture seconds per key and the
+    bytes its graphs' shared pool grew by."""
+    pc = mapper.programs
+    if pc is None:
+        return "eager (no programs)"
+    secs = [round(v, 4) for v in pc.capture_s]
+    return (f"{len(pc.programs)} live programs (capture s of each capture {secs}), graph "
+            f"pool {pc.pool_bytes} bytes")
+
+
+def _map_phase(tag, mappers, reads, passes, keys, total):
+    """Warm passes of each mapper (a Mapper, or {label: Mapper} of mappers
+    that must give the same bytes; the first is the main path): one, and
+    for a mapper with captured programs a second (a key's first batch
+    runs eagerly, its second captures it), both keeping the kernels'
+    inputs (_capturing) and timed, as the first and second pass; then
+    `passes` timed passes of each, in turns (a b b a ...). Each mapper's
+    timed passes count their launches apart (_counted; each must launch
+    every one of `keys`) and have their stage accounting checked
+    (_program_check); only the first mapper's launches go to `total`.
+    Returns (PAF lines of the last pass, {label: {"times", "stats" (last
+    pass), "summed" (PROGRAM_STATS over the timed passes), "launches",
+    "warm" (s)}}, captured inputs)."""
     import torch
 
-    t0 = time.perf_counter()
+    if not isinstance(mappers, dict):
+        mappers = {"captured" if mappers.programs is not None else "eager": mappers}
+    labels = list(mappers)
+    runs = {label: {"times": [], "summed": {}, "launches": {}, "warm": []}
+            for label in labels}
     with _capturing() as captured:
-        mapper.map_reads_paf(reads)
-        torch.cuda.synchronize()
-    print(f"{tag} warm pass {time.perf_counter() - t0:.3f} s")
-    times = []
+        for label in labels:
+            m = mappers[label]
+            for _w in range(2 if m.programs is not None else 1):
+                t1 = time.perf_counter()
+                m.map_reads_paf(reads)
+                torch.cuda.synchronize()
+                runs[label]["warm"].append(time.perf_counter() - t1)
+            print(f"{tag} ({label}) first and second pass (s): "
+                  f"{[round(t, 4) for t in runs[label]['warm']]}")
+    blobs = {}
+    for p in range(passes):
+        for label in (labels if p % 2 == 0 else labels[::-1]):
+            m, run = mappers[label], runs[label]
+            m.stats = {}
+            t1 = time.perf_counter()
+            blobs[label], got = _counted(f"{tag}, {label}",
+                                         lambda m=m: m.map_reads_paf(reads), [], None)
+            run["times"].append(time.perf_counter() - t1)
+            run["stats"] = dict(m.stats)
+            for k in PROGRAM_STATS:
+                run["summed"][k] = run["summed"].get(k, 0) + m.stats.get(k, 0)
+            for k, v in got.items():
+                run["launches"][k] = run["launches"].get(k, 0) + v
+    for label in labels[1:]:
+        if blobs[label] != blobs[labels[0]]:
+            a, b = (blobs[x].decode().split("\n") for x in (labels[0], label))
+            first = next((f"{x!r} != {y!r}" for x, y in zip(a, b) if x != y),
+                         f"line counts {len(a)} vs {len(b)}")
+            raise AssertionError(f"[{tag}] {label} != {labels[0]}: {first}")
+    lines = blobs[labels[0]].decode().split("\n")[:-1]
+    for label in labels:
+        run, m = runs[label], mappers[label]
+        for key in keys:
+            if not run["launches"].get(key):
+                raise AssertionError(f"[{tag}, {label}] the path never launched {key}")
+        _program_check(f"{tag}, {label}", m, run["summed"])
+        print(f"{tag} ({label}) pass times (s): {[round(t, 4) for t in run['times']]}, "
+              f"median {_median(run['times']):.4f}; stages over the timed passes "
+              f"{json.dumps(run['summed'])}; {_programs_line(m)}")
+        print(f"{tag} ({label}) stats (last pass): {json.dumps(run['stats'], sort_keys=True)}")
+        print(f"{tag} ({label}) kernel launches over {passes} timed passes: "
+              f"{run['launches']}")
+    for k, v in runs[labels[0]]["launches"].items():
+        total[k] = total.get(k, 0) + v
+    if len(labels) > 1:
+        print(f"{tag}: {' == '.join(labels)}, {len(lines)} PAF lines byte-identical; median "
+              f"pass " + ", ".join(f"{x} {_median(runs[x]['times']):.4f} s" for x in labels)
+              + "; first pass " + ", ".join(f"{x} {runs[x]['warm'][0]:.4f} s" for x in labels)
+              + "; last pass " + json.dumps({k: [runs[x]["stats"].get(k) for x in labels]
+                                             for k in HOST_STATS}))
+    return lines, runs, captured
 
-    def passes_():
-        for _ in range(passes):
-            mapper.stats = {}
+
+def _forced_phases(cp, mp, total) -> None:
+    """The 4x tier and the lazy wide pass on captured programs, forced
+    (the cases of tests/test_torch_mapper.py): 240 reads of 500-1000 bp
+    and 8 chimeras (halves 200 kb apart) on a 400 kb genome (seed 42)
+    with undersized slots (anchor_frac 0.04), which send 48 or more reads
+    to the 4x tier and switch some to the wide band on the device; and 3
+    reads of 5-8 kb and 3 chimeras (halves 300 kb apart) in an 8 kb
+    bucket (A >= 1024) on another (seed 45), which re-run in the lazy
+    wide pass. Parity with the oracle on every read."""
+    import numpy as np
+
+    from minimap2_rs_torch.config import IndexParams
+    from minimap2_rs_torch.models.index_builder import build_index_native
+    from minimap2_rs_torch.models.mapper import Mapper
+    from minimap2_rs_torch.utils.seqsim import random_genome, simulate_reads
+
+    for tag, seed, kw in (
+        ("tier2 forced", 42, dict(buckets=(1024,), batch_size=64, mini_frac=0.25,
+                                  anchor_frac=0.04)),
+        ("lazy wide pass forced", 45, dict(buckets=(8192,), batch_size=8)),
+    ):
+        g = random_genome(400_000, seed=seed)
+        idx = build_index_native([("chrR", g)], IndexParams())
+        rng = np.random.default_rng(seed + 2)
+        if seed == 42:
+            rl = [(n, s) for n, s, *_ in simulate_reads(g, 240, read_len=(500, 1000),
+                                                        seed=43)]
+            rl += [(f"chim{c}", g[a: a + 400] + g[a + 200_000: a + 200_400])
+                   for c, a in enumerate(rng.integers(0, 150_000, size=8).tolist())]
+        else:
+            rl = [(n, s) for n, s, *_ in simulate_reads(g, 3, read_len=(5000, 8000),
+                                                        seed=46)]
+            rl += [(f"lchim{c}", g[a: a + 3000] + g[a + 300_000: a + 303_000])
+                   for c, a in enumerate(rng.integers(0, 80_000, size=3).tolist())]
+        m = Mapper.from_oracle_index(idx, cp, mp, device="cuda", **kw)
+        lines, runs, _c = _map_phase(tag, m, rl, 1, [], total)
+        st = runs["captured"]["stats"]
+        if st.get("wide_reads", 0) == 0 or (seed == 42 and st.get("tier2_reads", 0) < 48):
+            raise AssertionError(f"[{tag}] tier2_reads {st.get('tier2_reads')}, "
+                                 f"wide_reads {st.get('wide_reads')}")
+        n_par = _parity(tag, idx, rl, lines, cp, mp)
+        print(f"{tag} parity vs oracle: {n_par} reads byte-identical; tier2_reads "
+              f"{st.get('tier2_reads')}, wide_reads {st.get('wide_reads')}")
+
+
+KERNEL_FAMILIES = ("chain_dp", "window_scan")  # launch-key and kernel-name prefixes
+
+
+def _families(keys) -> dict:
+    """The kernel launches among `keys` (launch keys or kernel names) per
+    family."""
+    out = dict.fromkeys(KERNEL_FAMILIES, 0)
+    for k in keys:
+        for fam in KERNEL_FAMILIES:
+            out[fam] += fam in k
+    return out
+
+
+def _profile_pass(tag, mapper, reads, trace_dir: Path) -> dict:
+    """One more pass of `reads` under torch.profiler (CUDA activity),
+    read from its chrome trace: the card's kernels and copies, and the
+    host's runtime calls that launch or copy, each per device stage of
+    the pass; the device busy share (the union of the card's activity
+    over the pass's wall time); the lane kernels' summed time and share
+    of the pass. The chain-DP and window-scan kernels the card ran must
+    match the launches counted in the pass; on a captured mapper, the
+    kernels of each graph launch must match the launches its program
+    recorded at capture (kernels/counts.py), replay by replay."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from minimap2_rs_torch.kernels import counts
+
+    mods = _kernel_modules()
+    for m in mods:
+        m.reset_launches()
+    replays = []
+    orig_replay = counts.replay
+
+    def replay(recorded):
+        replays.append(_families(k for _d, k in recorded))
+        orig_replay(recorded)
+
+    mapper.stats = {}
+    counts.replay = replay
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            blob = mapper.map_reads_paf(reads)
-            times.append(time.perf_counter() - t0)
-        return blob
-
-    blob, launches = _counted(tag, passes_, keys, total)
-    lines = blob.decode().split("\n")[:-1]
-    stats = dict(mapper.stats)
-    print(f"{tag} pass times (s): {[round(t, 4) for t in times]}; "
-          f"kernel launches over {passes} passes: {launches}")
-    print(f"{tag} stats (last pass): {json.dumps(stats, sort_keys=True)}")
-    return lines, times, stats, captured
+            mapper.map_reads_paf(reads)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        counts.replay = orig_replay
+    counted = {k: v for m in mods for k, v in m.launches.items() if v}
+    path = trace_dir / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    n = mapper.stats["device_stages"]
+    kinds, api, spans, lane_us = {}, {}, [], 0.0
+    by_launch: dict = {}  # correlation id -> kernel names
+    graph_launches = []
+    for e in events:
+        cat = e.get("cat", "")
+        if cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            kinds[cat] = kinds.get(cat, 0) + 1
+            spans.append((e["ts"], e["ts"] + e.get("dur", 0)))
+            if cat == "kernel":
+                by_launch.setdefault(e.get("args", {}).get("correlation"), []).append(e["name"])
+                lane_us += e.get("dur", 0) if "chain_dp_lane_kernel" in e["name"] else 0
+        elif cat == "cuda_runtime" and ("Launch" in e["name"] or "Memcpy" in e["name"]):
+            api[e["name"]] = api.get(e["name"], 0) + 1
+            if e["name"].startswith("cudaGraphLaunch"):
+                graph_launches.append((e["ts"], e.get("args", {}).get("correlation")))
+    ran = _families(name for names in by_launch.values() for name in names)
+    if ran != _families(k for k, v in counted.items() for _i in range(v)):
+        raise AssertionError(f"[{tag}] the card ran {ran} chain-DP/window-scan kernels, the "
+                             f"pass counted {counted}")
+    if mapper.programs is not None:
+        got = [_families(by_launch.get(c, [])) for _ts, c in sorted(graph_launches)]
+        if got != replays:
+            raise AssertionError(f"[{tag}] kernels per graph launch {got} != the launches "
+                                 f"recorded for each replayed program {replays}")
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    out = {"device_stages": n, "wall_s": wall,
+           "device_per_stage": {k: v / n for k, v in kinds.items()},
+           "host_calls_per_stage": {k: v / n for k, v in api.items()},
+           "busy_share": busy / 1e6 / wall, "lane_ms": lane_us / 1e3,
+           "lane_share": lane_us / 1e6 / wall, "kernels_checked": ran,
+           "graph_launches_checked": len(replays)}
+    print(f"{tag} profiled pass: {json.dumps(out)}")
+    return out
 
 
 def _launched(captured, key):
@@ -761,8 +957,9 @@ def _launched(captured, key):
 def _mesh_dp_phase(idx, cp, mp, reads, lines, mapper_ms: float, mapper_stats: dict):
     """MeshMapper (dp = 1) over a 1-rank NCCL group on the headline reads:
     byte-identical to the single-device Mapper's `lines`, its median pass
-    printed beside the Mapper's, and the host seconds of its last pass
-    (encode, stage issue, the all_gather) beside the Mapper's. Returns its captured kernel inputs and
+    printed beside the eager Mapper's, and the host seconds of its last
+    pass (encode, stage issue, the all_gather) beside the eager Mapper's
+    (the mesh steps run eagerly). Returns its captured kernel inputs and
     its timed passes' launches."""
     from minimap2_rs_torch.models.mesh_mapper import make_mesh_mapper
 
@@ -771,17 +968,17 @@ def _mesh_dp_phase(idx, cp, mp, reads, lines, mapper_ms: float, mapper_stats: di
         raise AssertionError(f"the 1-rank mesh took {mm.mesh.backend}, not nccl")
     tag = "mesh dp (NCCL, 1 rank)"
     launches: dict = {}
-    mlines, mtimes, mstats, cap = _map_phase(tag, mm, reads, 3, ["chain_dp_aux/static"],
-                                             launches)
+    mlines, runs, cap = _map_phase(tag, mm, reads, 3, ["chain_dp_aux/static"], launches)
+    mtimes, mstats = runs["eager"]["times"], runs["eager"]["stats"]
     if mlines != lines:
         first = next((f"{a!r} != {b!r}" for a, b in zip(mlines, lines) if a != b),
                      f"line counts {len(mlines)} vs {len(lines)}")
         raise AssertionError(f"[{tag}] != the single-device Mapper: {first}")
-    print(f"{tag} median pass {_median(mtimes):.4f} s beside the single-device Mapper's "
-          f"{mapper_ms:.4f} s (same call); {len(mlines)} PAF lines byte-identical to the "
-          f"Mapper's; collectives over 4 passes: {json.dumps(mm.mesh.stats)}")
+    print(f"{tag} median pass {_median(mtimes):.4f} s beside the eager single-device "
+          f"Mapper's {mapper_ms:.4f} s (same call); {len(mlines)} PAF lines byte-identical "
+          f"to the Mapper's; collectives over 4 passes: {json.dumps(mm.mesh.stats)}")
     keys = ("submit", "encode", "stage_issue", "h2d_bytes", "d2h+wait", "post")
-    print(f"{tag} last pass beside the Mapper's last pass: " + json.dumps(
+    print(f"{tag} last pass beside the eager Mapper's last pass: " + json.dumps(
         {kk: [mstats.get(kk), mapper_stats.get(kk)] for kk in keys}))
     return cap, launches
 
@@ -937,53 +1134,85 @@ def main() -> int:
     idx = build_index_native([("chrB", genome)], IndexParams())
     mapper = Mapper.from_oracle_index(idx, cp, mp, device="cuda", batch_size=1024)
     gmapper = Mapper.from_oracle_index(idx, cp_gen, mp, device="cuda", batch_size=1024)
+    # the same mappers with every device stage issued eagerly
+    emapper = Mapper.from_oracle_index(idx, cp, mp, device="cuda", batch_size=1024,
+                                       graphs=False)
+    egmapper = Mapper.from_oracle_index(idx, cp_gen, mp, device="cuda", batch_size=1024,
+                                        graphs=False)
     if not mapper._lite_eligible() or gmapper._lite_eligible():
         raise AssertionError("the lite/general mappers took the wrong paths")
+    if mapper.programs is None or emapper.programs is not None:
+        raise AssertionError("the CUDA mappers took the wrong programs")
     reads = [(n, s) for n, s, *_ in simulate_reads(genome, 16384, read_len=(500, 1000), seed=1)]
     lreads = [(n, s) for n, s, *_ in simulate_reads(genome, 64, read_len=(5000, 20000), seed=3)]
     di = mapper.dev_idx
     print(f"set-up {time.perf_counter() - t0:.1f} s: {idx.keys.shape[0]} keys, "
           f"dm_entry={di.dm_entry} p={di.dm_bits} S={di.dm_slots}")
     total: dict = {}  # main-path launches per variant/shape, single-device phases
+    trace_dir = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    trace_dir.mkdir(parents=True, exist_ok=True)
+    profiled: dict = {}
 
-    # ---- lite headline: 16,384 reads, 1 warm + 5 timed passes --------
-    lines, times, stats, cap_lite = _map_phase("lite headline", mapper, reads, 5,
-                                               ["chain_dp_aux/static"], total)
+    def profile(tag, pair):
+        for label, m in pair.items():
+            profiled[f"{tag} ({label})"] = _profile_pass(f"{tag} ({label})", m, reads_of[tag],
+                                                          trace_dir)
+
+    lite, general = {"captured": mapper, "eager": emapper}, {"captured": gmapper,
+                                                            "eager": egmapper}
+    reads_of = {"lite headline": reads, "lite long-read": lreads,
+                "general headline": reads, "general long-read": lreads}
+
+    # ---- lite headline: 16,384 reads, 1 warm + 5 timed passes a path --
+    lines, runs, cap_lite = _map_phase("lite headline", lite, reads, 5,
+                                       ["chain_dp_aux/static"], total)
+    times, stats = runs["captured"]["times"], runs["captured"]["stats"]
     mapped = {l.split("\t", 1)[0] for l in lines}
     aligned_bp = sum(len(s) for n, s in reads if n in mapped)
-    dt = dt_lite = _median(times)
-    print(f"lite headline median pass {dt:.4f} s, aligned {aligned_bp / dt:.1f} bp/s, "
+    dt = _median(times)
+    dt_eager = _median(runs["eager"]["times"])
+    print(f"lite headline median pass {dt:.4f} s captured, {dt_eager:.4f} s eager; aligned "
+          f"{aligned_bp / dt:.1f} bp/s captured, {aligned_bp / dt_eager:.1f} eager, "
           f"{len(lines)} PAF lines")
-    if stats.get("host_reads", 0) >= 0.01 * len(reads):
-        raise AssertionError(f"host fallback on {stats.get('host_reads')} reads (>= 1%)")
+    for run in runs.values():
+        if run["stats"].get("host_reads", 0) >= 0.01 * len(reads):
+            raise AssertionError(f"host fallback on {run['stats'].get('host_reads')} reads "
+                                 "(>= 1%)")
     n_par = _parity("lite headline", idx, reads[::16], lines, cp, mp)
     print(f"lite headline parity vs oracle: {n_par} reads byte-identical")
+    profile("lite headline", lite)
 
     # ---- lite long reads: 64 reads of 5-20 kb --------------------------
-    llines, _t, _s, cap_llong = _map_phase("lite long-read", mapper, lreads, 3,
-                                           ["chain_dp_aux/lane"], total)
+    llines, _r, cap_llong = _map_phase("lite long-read", lite, lreads, 3,
+                                       ["chain_dp_aux/lane"], total)
     n_par = _parity("lite longread", idx, lreads, llines, cp, mp)
     print(f"lite long-read parity vs oracle: {n_par} reads byte-identical")
-    _lane_share("lite long-read", mapper, lreads)
+    profile("lite long-read", lite)
 
     # ---- general headline: align -n 1 -m 10, 1 warm + 3 timed passes --
     # the device DP scores the window exactly, so the gate is the oracle
     # with max_chain_skip past any window; agreement with the default
     # oracle is printed, not gated
     cp_exact = dataclasses.replace(cp_gen, max_chain_skip=1 << 30)
-    glines, gtimes, gstats, cap_gen = _map_phase("general headline", gmapper, reads,
-                                                 3, ["chain_dp/static"], total)
+    glines, gruns, cap_gen = _map_phase("general headline", general, reads, 3,
+                                        ["chain_dp/static"], total)
     n_sec = _count_where(glines, _is_secondary)
     n_s2 = _count_where(glines, lambda l: _s2(l) > 0)
     mapped = {l.split("\t", 1)[0] for l in glines}
     aligned_bp = sum(len(s) for n, s in reads if n in mapped)
-    dt = _median(gtimes)
-    print(f"general headline median pass {dt:.4f} s, aligned {aligned_bp / dt:.1f} bp/s, "
-          f"{len(glines)} PAF lines, {n_sec} tp:A:S lines, {n_s2} lines with s2 > 0")
+    dt = _median(gruns["captured"]["times"])
+    print(f"general headline median pass {dt:.4f} s captured, "
+          f"{_median(gruns['eager']['times']):.4f} s eager; aligned {aligned_bp / dt:.1f} "
+          f"bp/s captured, {len(glines)} PAF lines, {n_sec} tp:A:S lines, {n_s2} lines "
+          f"with s2 > 0")
     if n_sec == 0:
         raise AssertionError("the general path emitted no secondary (tp:A:S) line")
-    if gstats.get("host_reads", 0) >= 0.01 * len(reads):
-        raise AssertionError(f"host fallback on {gstats.get('host_reads')} reads (>= 1%)")
+    for run in gruns.values():
+        if run["stats"].get("host_reads", 0) >= 0.01 * len(reads):
+            raise AssertionError(f"host fallback on {run['stats'].get('host_reads')} reads "
+                                 "(>= 1%)")
+    if not gruns["captured"]["stats"].get("rescue_reads"):
+        raise AssertionError("the general headline queued no rescue re-chain")
     sample = reads[::16]
     with _OracleRescues(cp_gen) as resc_exact:
         n_par = _parity("general headline", idx, sample, glines, cp_exact, mp)
@@ -997,15 +1226,26 @@ def main() -> int:
           f"port {gmapper.stats.get('rescue_reads', 0)} (besides "
           f"{gmapper.stats.get('host_reads', 0)} reads sent to the host pipeline), "
           f"exact-window oracle {resc_exact.n}, default oracle {resc_default.n}")
+    profile("general headline", general)
 
     # ---- general long reads ----------------------------------------------
-    gllines, _t, _s, cap_glong = _map_phase("general long-read", gmapper, lreads, 3,
-                                            ["chain_dp/lane"], total)
+    gllines, _r, cap_glong = _map_phase("general long-read", general, lreads, 3,
+                                        ["chain_dp/lane"], total)
     n_par = _parity("general longread", idx, lreads, gllines, cp_exact, mp)
     print(f"general long-read parity vs exact-window oracle: {n_par} reads byte-identical")
     print(f"general long reads equal to the default oracle: "
           f"{_agree(idx, lreads, gllines, cp_gen, mp)} of {n_par} reads")
-    _lane_share("general long-read", gmapper, lreads)
+    profile("general long-read", general)
+
+    # ---- ont_10pct: 256 reads of 1-2 kb at 10% error (bench.py:391-399) --
+    r_ont = [(n, s) for n, s, *_ in simulate_reads(genome, 256, read_len=(1000, 2000),
+                                                   error_rate=0.10, seed=19)]
+    l_ont, _r, _c = _map_phase("ont_10pct", mapper, r_ont, 1, ["chain_dp_aux/static"], total)
+    n_par = _parity("ont_10pct", idx, r_ont, l_ont, cp, mp)
+    print(f"ont_10pct parity vs oracle: {n_par} reads byte-identical, {len(l_ont)} PAF lines")
+
+    # ---- the 4x tier and the lazy wide pass, forced ------------------
+    _forced_phases(cp, mp, total)
 
     # ---- hifi_k19: lite path at k=19 -----------------------------------
     t0 = time.perf_counter()
@@ -1017,7 +1257,7 @@ def main() -> int:
                                                  error_rate=0.01, seed=13)]
     print(f"hifi_k19 set-up {time.perf_counter() - t0:.1f} s: "
           f"{idx19.keys.shape[0]} keys, dm_entry={m19.dev_idx.dm_entry}")
-    l19, _t, _s, cap_19 = _map_phase("hifi_k19", m19, r19, 1, ["chain_dp_aux/static"],
+    l19, _r, cap_19 = _map_phase("hifi_k19", m19, r19, 1, ["chain_dp_aux/static"],
                                      total)
     n_par = _parity("hifi_k19", idx19, r19, l19, cp19, mp)
     print(f"hifi_k19 parity vs oracle: {n_par} reads byte-identical, {len(l19)} PAF lines")
@@ -1031,7 +1271,7 @@ def main() -> int:
     r14 += [(f"long_{n}", s) for n, s, *_ in simulate_reads(
         g19, 16, read_len=(5000, 20000), seed=29)]
     print(f"even_k14 set-up {time.perf_counter() - t0:.1f} s: {idx14.keys.shape[0]} keys")
-    l14, _t, _s, cap_14 = _map_phase(
+    l14, _r, cap_14 = _map_phase(
         "even_k14", m14, r14, 1,
         ["window_scan/short", "window_scan/long", "chain_dp_aux/static",
          "chain_dp_aux/lane"], total)
@@ -1044,7 +1284,7 @@ def main() -> int:
     m_hpc = Mapper.from_oracle_index(idx_hpc, cp, mp, device="cuda", batch_size=1024)
     r_hpc = [(n, s) for n, s, *_ in simulate_reads(g19, 128, read_len=(500, 1000), seed=17)]
     print(f"hpc set-up {time.perf_counter() - t0:.1f} s: {idx_hpc.keys.shape[0]} keys")
-    l_hpc, _t, _s, _c = _map_phase("hpc", m_hpc, r_hpc, 1, ["chain_dp_aux/static"], total)
+    l_hpc, _r, _c = _map_phase("hpc", m_hpc, r_hpc, 1, ["chain_dp_aux/static"], total)
     n_par = _parity("hpc", idx_hpc, r_hpc, l_hpc, cp, mp)
     print(f"hpc parity vs oracle: {n_par} reads byte-identical, {len(l_hpc)} PAF lines")
 
@@ -1055,9 +1295,9 @@ def main() -> int:
     try:
         m_sp = Mapper.from_oracle_index(idx, cp, mp, device="cuda", batch_size=128)
         gm_sp = Mapper.from_oracle_index(idx, cp_gen, mp, device="cuda", batch_size=128)
-        l_sp, _t, _s, cap_sp = _map_phase("skipprune lite", m_sp, r_sp, 1,
+        l_sp, _r, cap_sp = _map_phase("skipprune lite", m_sp, r_sp, 1,
                                           ["chain_dp_aux_prune/static"], total)
-        gl_sp, _t, _s, cap_gsp = _map_phase("skipprune general", gm_sp, r_sp, 1,
+        gl_sp, _r, cap_gsp = _map_phase("skipprune general", gm_sp, r_sp, 1,
                                             ["chain_dp_prune/static"], total)
     finally:
         del os.environ["MM2T_SKIP_PRUNE"]
@@ -1065,6 +1305,32 @@ def main() -> int:
     n_gpar = _parity("skipprune general", idx, r_sp, gl_sp, cp_gen, mp)
     print(f"skipprune parity vs the default oracle: lite {n_par}, general {n_gpar} reads "
           f"byte-identical ({len(l_sp)} and {len(gl_sp)} PAF lines)")
+
+    # ---- large: a 100 Mbp genome, 16,384 reads (bench.py:475-531) ---------
+    t0 = time.perf_counter()
+    big = random_genome(100_000_000, seed=7)
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    idx_big = build_index_native([("chrL", big)], IndexParams())
+    t_build = time.perf_counter() - t0
+    build_stages = nhost.last_build_stage_s()
+    t0 = time.perf_counter()
+    bmapper = Mapper.from_oracle_index(idx_big, cp, mp, device="cuda", batch_size=1024)
+    bdi = bmapper.dev_idx
+    print(f"large set-up: genome {t_gen:.1f} s; native index build {t_build:.3f} s (stages "
+          f"{json.dumps(build_stages)}), {idx_big.keys.shape[0]} keys; device index "
+          f"{time.perf_counter() - t0:.1f} s, dm_entry={bdi.dm_entry} p={bdi.dm_bits} "
+          f"S={bdi.dm_slots}")
+    brl = [(n, s) for n, s, *_ in simulate_reads(big, 16384, read_len=(500, 1000), seed=9)]
+    blines, bruns, _c = _map_phase("large", bmapper, brl, 3, ["chain_dp_aux/static"], total)
+    bnames = {l.split("\t", 1)[0] for l in blines}
+    b_bp = sum(len(s) for n, s in brl if n in bnames)
+    dt = _median(bruns["captured"]["times"])
+    print(f"large median pass {dt:.4f} s, aligned {b_bp / dt:.1f} bp/s, {len(blines)} PAF "
+          f"lines")
+    n_par = _parity("large", idx_big, brl[::64], blines, cp, mp)
+    print(f"large parity vs oracle: {n_par} reads byte-identical (every 64th)")
+    del bmapper, idx_big, big, brl, blines
 
     # ---- device index build of the 5 Mbp genome ---------------------------
     for flag in (0, 1):
@@ -1139,7 +1405,8 @@ def main() -> int:
               f"{got[0][:4].tolist()}")
 
     # ---- the multi-GPU mapper: a 1-rank NCCL mesh, the CLI, 2 gloo ranks --
-    cap_mesh_dp, n_mesh_dp = _mesh_dp_phase(idx, cp, mp, reads, lines, dt_lite, stats)
+    cap_mesh_dp, n_mesh_dp = _mesh_dp_phase(idx, cp, mp, reads, lines, dt_eager,
+                                            runs["eager"]["stats"])
     _mesh_cli_phase(cli, cli_dir, genome, reads)
     cap_mesh_sh, n_mesh_sh = _mesh_sharded_phase(cp, mp, cli_dir)
     print(f"main-path launches per kernel/shape, the single-device phases: {total}; "

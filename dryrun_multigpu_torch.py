@@ -79,11 +79,11 @@ def entry() -> None:
     dev_idx = DeviceIndex.from_host(idx.keys, idx.starts, idx.counts, idx.positions,
                                     key_bits=2 * idx.k, device="cpu")
     out = _fused_map_stage(
-        dev_idx, torch.from_numpy(codes), torch.from_numpy(lengths), torch.zeros(1),
-        chain_scalars_from_params(cp), max(idx.calc_mid_occ(2e-4), 10),
-        log2_table(cp.bw + 1), w=st["w"], k=st["k"], q_occ_max=st["q_occ_max"],
-        q_occ_frac=st["q_occ_frac"], M=st["M"], A=st["A"], window=st["window"],
-        wire="codes",
+        torch.from_numpy(codes), torch.from_numpy(lengths), torch.zeros(1),
+        dev_idx=dev_idx, scalars=chain_scalars_from_params(cp),
+        mid_occ=max(idx.calc_mid_occ(2e-4), 10), log2_tab=log2_table(cp.bw + 1),
+        w=st["w"], k=st["k"], q_occ_max=st["q_occ_max"], q_occ_frac=st["q_occ_frac"],
+        M=st["M"], A=st["A"], window=st["window"], wire="codes",
     )
     unpacked = _unpack_map_stage(out.numpy(), M=st["M"], A=st["A"])
     _check(int(unpacked["n_anchors"].sum()) > 0, "entry: no anchor")

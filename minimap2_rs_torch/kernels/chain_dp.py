@@ -57,16 +57,19 @@ from __future__ import annotations
 import torch
 
 from ..ops.chain_ops import ChainScalars, chain_dp_aux_batch_ref, chain_dp_batch_ref
+from . import counts
 
 SHAPES = ("static", "dynamic", "lane")
 
 # kernel launches per "variant/shape" (the main path's proof that it ran
-# through each kernel at each shape); the plain versions do not count
+# through each kernel at each shape), replays of a captured program
+# included (kernels/counts.py); the plain versions do not count
 VARIANTS = ("chain_dp_aux", "chain_dp", "chain_dp_aux_prune", "chain_dp_prune")
 launches = {f"{v}/{s}": 0 for v in VARIANTS for s in SHAPES}
 # when a dict, each launch's inputs are kept under (variant/shape, bw, A),
 # the first launch of each key winning, so the kernel can be held against
-# its plain version at exactly the shapes a run gave it
+# its plain version at exactly the shapes a run gave it (launches outside
+# a capture only)
 captured: dict | None = None
 
 
@@ -222,8 +225,7 @@ def _run(variant: str, n_out: int, ref, grp, rpos, qpos, span,
     outs = _launch(entry, n_out, grp, rpos, qpos, span, scalars, window, log2_tab,
                    max_chain_skip)
     key = f"{variant}/{shape_class(A, window)}"
-    launches[key] += 1
-    if captured is not None:
+    if counts.count(launches, key) and captured is not None:
         captured.setdefault((key, scalars.bw, A), (
             tuple(t.clone() for t in (grp, rpos, qpos, span)), scalars, window,
             max_chain_skip))

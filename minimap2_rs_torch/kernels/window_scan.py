@@ -23,16 +23,17 @@ from __future__ import annotations
 import torch
 
 from ..ops.sketch_scan import _window_scan_ref
+from . import counts
 from .chain_dp import _check
 
 SHAPES = ("short", "long")
 LONG_L = 4096
 
-# kernel launches per "window_scan/<length class>"; the plain version
-# does not count
+# kernel launches per "window_scan/<length class>", replays of a captured
+# program included (kernels/counts.py); the plain version does not count
 launches = {f"window_scan/{s}": 0 for s in SHAPES}
 # when a dict, each launch's inputs are kept under (key, L), the first
-# launch of each key winning
+# launch of each key winning (launches outside a capture only)
 captured: dict | None = None
 
 
@@ -102,8 +103,7 @@ def window_scan(
     emitted = _launch("mm2t_window_scan_tile", ks, ps, l_eff, lengths, w, k, emit_final)
     L = ks.shape[1]
     key = f"window_scan/{shape_class(L)}"
-    launches[key] += 1
-    if captured is not None:
+    if counts.count(launches, key) and captured is not None:
         captured.setdefault((key, L), (
             tuple(t.clone() for t in (ks, ps, l_eff, lengths, emit_final)), w, k))
     return emitted

@@ -25,7 +25,13 @@ does (mapper.py:222-230); by default the window is scored exactly.
 Submission runs on a background thread feeding the drain in order; on
 CUDA each batch goes up as a pinned 2-bit wire and comes back through a
 pinned buffer with a non-blocking copy and an event, so the host
-postprocess of batch i overlaps the device work of later batches.
+postprocess of batch i overlaps the device work of later batches. A
+CUDA mapper issues each device stage (the lite and general programs,
+the rescue re-chain) through captured programs: the first batch of a
+stage and shape runs eagerly, the second captures it as a CUDA graph,
+and that and every later batch replay it (models/programs.py; JAX keeps
+one executable per shape, mapper.py:396-435); graphs=False runs them
+all eagerly.
 """
 
 from __future__ import annotations
@@ -58,6 +64,7 @@ from ..runtime.host import (
     native_postprocess,
 )
 from ..utils.packing import nt4_encode
+from .programs import COUNTERS, ProgramCache, run_eager
 from .stages import (
     chain_finalize_lite,
     chain_inputs,
@@ -122,10 +129,11 @@ def _codes_from_wire(codes, lengths, nex, wire: str) -> torch.Tensor:
 
 
 def _fused_map_stage_lite(
-    dev_idx: DeviceIndex,
     codes: torch.Tensor,
     lengths: torch.Tensor,
     nex: torch.Tensor,
+    *,
+    dev_idx: DeviceIndex,
     scalars: ChainScalars,
     scalars_wide: ChainScalars,
     mid_occ: int,
@@ -133,14 +141,14 @@ def _fused_map_stage_lite(
     rmq_rescue_size: int,
     rmq_rescue_ratio: float,
     log2_tab: torch.Tensor,
-    *,
     w: int, k: int, q_occ_max: int, q_occ_frac: float,
     M: int, A: int, window: int,
     flag_window_ovf: bool, wire: str, wide: bool,
     max_chain_skip: int | None = None,
 ) -> torch.Tensor:
     """The whole per-batch device pipeline (JAX _fused_map_stage_lite,
-    mapper.py:160-219); returns the (B, 10) int32 wire rows."""
+    mapper.py:160-219) on one batch's wire, lengths and N list; returns
+    the (B, 10) int32 wire rows."""
     codes = _codes_from_wire(codes, lengths, nex, wire)
     anc = sketch_to_anchors(
         dev_idx, codes, lengths, mid_occ, w=w, k=k,
@@ -155,14 +163,14 @@ def _fused_map_stage_lite(
 
 
 def _fused_map_stage(
-    dev_idx: DeviceIndex,
     codes: torch.Tensor,
     lengths: torch.Tensor,
     nex: torch.Tensor,
+    *,
+    dev_idx: DeviceIndex,
     scalars: ChainScalars,
     mid_occ: int,
     log2_tab: torch.Tensor,
-    *,
     w: int, k: int, q_occ_max: int, q_occ_frac: float,
     M: int, A: int, window: int, wire: str,
     max_chain_skip: int | None = None,
@@ -188,7 +196,7 @@ def _fused_map_stage(
     return torch.cat(words + [f, prev, as_i32(anc["cps"])] + flags, dim=1)
 
 
-def _packed_chain_stage(x_hi, x_lo, y_hi, y_lo, scalars: ChainScalars,
+def _packed_chain_stage(x_hi, x_lo, y_hi, y_lo, *, scalars: ChainScalars,
                         window: int, log2_tab: torch.Tensor,
                         max_chain_skip: int | None = None) -> torch.Tensor:
     """The chain DP alone (the rescue re-run, lchain.rs:321-330; JAX
@@ -239,6 +247,10 @@ class Mapper:
     batch_size: int = 1024      # max reads per device call
     mini_frac: float = 0.22     # minimizer slots per base of bucket
     anchor_frac: float = 0.18   # anchor slots per base of bucket
+    # on CUDA, issue each device stage through captured programs (one
+    # CUDA graph per stage and shape, models/programs.py); False runs
+    # them eagerly. The CPU always runs them eagerly.
+    graphs: bool = True
     stats: dict = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
@@ -260,6 +272,8 @@ class Mapper:
         self._tier2_queue: list = []
         self._wide_queue: list = []
         self._rescue_queue: list = []
+        self.programs = (ProgramCache(self.device)
+                         if self.graphs and self.device.type == "cuda" else None)
 
     @classmethod
     def from_oracle_index(cls, idx: OracleIndex, cp: ChainParams,
@@ -415,13 +429,6 @@ class Mapper:
             packed4 = codes[:, 0::2] | (codes[:, 1::2] << 4)
         return packed4
 
-    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
-        """A host array on the device."""
-        t = torch.from_numpy(arr)
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
-
     def _stage_kw(self) -> dict:
         """The index's and map parameters' statics of a device program."""
         return dict(w=self.idx.w, k=self.idx.k, q_occ_max=self.mp.q_occ_max,
@@ -432,28 +439,46 @@ class Mapper:
         process maps: all of them (MeshMapper: its rank's)."""
         return arr
 
-    def _device_stage_lite(self, d_wire, d_len, d_nex, scalars: ChainScalars, *,
+    def _run_stage(self, fn, inputs: tuple, stats: dict, /, **statics):
+        """fn(*inputs on the device, **statics) for one batch's host arrays
+        `inputs`: through the program cache (self.programs) on a CUDA
+        mapper with graphs, else eagerly. Returns (the output's host
+        buffer, the event its copy completes, None on the CPU). Adds
+        device_stages, the cache's counts (or eager_stages) and the host
+        seconds upload, stage_issue and d2h_issue to stats."""
+        _add_stats(stats, "device_stages", 1)
+        inputs = tuple(map(torch.from_numpy, inputs))
+        if self.programs is not None:
+            return self.programs.run(fn, inputs, stats, **statics)
+        return run_eager(fn, inputs, stats, self.device, **statics)
+
+    def _device_stage_lite(self, wire_arr, lengths, nex, scalars: ChainScalars, *,
                            wide: bool, M: int, A: int, window: int, wire: str,
-                           max_chain_skip: int | None, stats: dict) -> torch.Tensor:
-        """The lite program on one padded batch (its _rank_rows): its wire
-        rows. stats is the submitting thread's stats dict."""
-        return _fused_map_stage_lite(
-            self.dev_idx, d_wire, d_len, d_nex,
-            scalars, self._scalars_wide, self.mid_occ, self._tlens_dev,
-            self.cp.rmq_rescue_size, self.cp.rmq_rescue_ratio, self._log2_tab,
+                           max_chain_skip: int | None, stats: dict):
+        """The lite program on one padded batch's host arrays (its
+        _rank_rows): _run_stage's (host wire rows, event). stats is the
+        submitting thread's stats dict."""
+        return self._run_stage(
+            _fused_map_stage_lite, (wire_arr, lengths, nex), stats,
+            dev_idx=self.dev_idx, scalars=scalars, scalars_wide=self._scalars_wide,
+            mid_occ=self.mid_occ, tlens=self._tlens_dev,
+            rmq_rescue_size=self.cp.rmq_rescue_size,
+            rmq_rescue_ratio=self.cp.rmq_rescue_ratio, log2_tab=self._log2_tab,
             flag_window_ovf=window < min(self.cp.max_chain_iter, A), wide=wide,
             M=M, A=A, window=window, wire=wire, max_chain_skip=max_chain_skip,
             **self._stage_kw(),
         )
 
-    def _device_stage(self, d_wire, d_len, d_nex, scalars: ChainScalars, *,
+    def _device_stage(self, wire_arr, lengths, nex, scalars: ChainScalars, *,
                       M: int, A: int, window: int, wire: str,
-                      max_chain_skip: int | None) -> torch.Tensor:
-        """The general program on one padded batch: its packed buffer."""
-        return _fused_map_stage(
-            self.dev_idx, d_wire, d_len, d_nex, scalars, self.mid_occ, self._log2_tab,
-            M=M, A=A, window=window, wire=wire, max_chain_skip=max_chain_skip,
-            **self._stage_kw(),
+                      max_chain_skip: int | None, stats: dict):
+        """The general program on one padded batch's host arrays:
+        _run_stage's (host packed buffer, event)."""
+        return self._run_stage(
+            _fused_map_stage, (wire_arr, lengths, nex), stats,
+            dev_idx=self.dev_idx, scalars=scalars, mid_occ=self.mid_occ,
+            log2_tab=self._log2_tab, M=M, A=A, window=window, wire=wire,
+            max_chain_skip=max_chain_skip, **self._stage_kw(),
         )
 
     def _submit_groups(self, reads, groups, scalars, lite=True, mult=None,
@@ -497,27 +522,17 @@ class Mapper:
                            + (nex.nbytes if nex is not None else 0))
                 if nex is None:
                     nex = np.zeros(1, dtype=np.int32)
-                d_wire = self._to_device(wire_arr)
-                d_len = self._to_device(lengths)
-                d_nex = self._to_device(nex)
                 common = dict(M=M, A=A, window=window, wire=wire,
-                              max_chain_skip=_chain_skip_cfg(self.cp))
-                t0 = time.perf_counter()
+                              max_chain_skip=_chain_skip_cfg(self.cp), stats=stats)
+                # the stage's host seconds go to stats as upload,
+                # stage_issue (the stage or its replay, with its
+                # collectives) and d2h_issue; the drain waits on `ready`
                 if lite:
-                    out = self._device_stage_lite(d_wire, d_len, d_nex, scalars,
-                                                  wide=wide_prog, stats=stats, **common)
+                    out, ready = self._device_stage_lite(wire_arr, lengths, nex, scalars,
+                                                         wide=wide_prog, **common)
                 else:
-                    out = self._device_stage(d_wire, d_len, d_nex, scalars, **common)
-                # host seconds issuing the stage (its collectives included)
-                _add_stats(stats, "stage_issue", time.perf_counter() - t0)
-                ready = None
-                if out.is_cuda:
-                    # start the D2H copy now; the drain waits on the event
-                    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-                    host.copy_(out, non_blocking=True)
-                    ready = torch.cuda.Event()
-                    ready.record()
-                    out = host
+                    out, ready = self._device_stage(wire_arr, lengths, nex, scalars,
+                                                    **common)
                 entry = (chunk, out, ready, mode, (M, A, window))
                 pending.append(entry)
                 if sink is not None:
@@ -755,11 +770,22 @@ class Mapper:
         """The bw_long chain DP of (B, A) uint32 anchor words on the
         device; returns host (f, prev) int32 arrays."""
         A = x_hi.shape[1]
-        words = (self._to_device(np.ascontiguousarray(a).view(np.int32))
-                 for a in (x_hi, x_lo, y_hi, y_lo))
-        packed = _packed_chain_stage(*words, self._scalars_wide, window,
-                                     self._log2_tab,
-                                     _chain_skip_cfg(self.cp)).cpu().numpy()
+        words = tuple(np.ascontiguousarray(a).view(np.int32)
+                      for a in (x_hi, x_lo, y_hi, y_lo))
+        st: dict = {}
+        out, ready = self._run_stage(
+            _packed_chain_stage, words, st, scalars=self._scalars_wide,
+            window=window, log2_tab=self._log2_tab,
+            max_chain_skip=_chain_skip_cfg(self.cp),
+        )
+        # the program counters only: the rescue's host seconds are in
+        # "rescue", and upload/stage_issue/d2h_issue time the map stages
+        for k in COUNTERS:
+            if k in st:
+                _add_stats(self.stats, k, st[k])
+        if ready is not None:
+            ready.synchronize()
+        packed = out.numpy()
         return packed[:, :A], packed[:, A:]
 
     def _drain_rescues(self, reads, results):

@@ -14,6 +14,9 @@ the single-device Mapper's and the host oracle's.
 Parameterizations off the lite path (min_cnt <= 1) run the inherited
 single-device general path on every rank, as in the JAX package: they
 need the host backtrack anyway.
+
+Every stage runs eagerly (graphs=False): the mesh steps issue
+collectives, and a gloo collective cannot be captured into a CUDA graph.
 """
 
 from __future__ import annotations
@@ -39,11 +42,15 @@ class MeshMapper(Mapper):
 
     mesh: Mesh = None
     index_sharded: bool = False
+    graphs: bool = False
 
     def __post_init__(self):
         super().__post_init__()
         if self.mesh is None:
             raise ValueError("MeshMapper needs a mesh")
+        if self.graphs:
+            raise ValueError("MeshMapper runs its stages eagerly (graphs=False): "
+                             "its collectives are not captured")
         if self.mesh.device != self.device:
             raise ValueError(f"mapper on {self.device}, mesh rank on {self.mesh.device}")
         self._sidx = None
@@ -95,8 +102,14 @@ class MeshMapper(Mapper):
         b = arr.shape[0] // n
         return arr[r * b:(r + 1) * b]
 
-    def _device_stage_lite(self, d_wire, d_len, d_nex, scalars, *, wide, M, A, window,
-                           wire, max_chain_skip, stats):
+    def _device_stage_lite(self, wire_arr, lengths, nex, scalars, *, stats, **kw):
+        return self._run_stage(self._mesh_stage_lite, (wire_arr, lengths, nex), stats,
+                               scalars=scalars, stats=stats, **kw)
+
+    def _mesh_stage_lite(self, d_wire, d_len, d_nex, *, scalars, wide, M, A, window,
+                         wire, max_chain_skip, stats):
+        """The dp or sharded step on this rank's rows, then the all_gather
+        of every rank's wire rows."""
         if wire != "4bit":
             raise ValueError("the mesh programs take the 4-bit wire")
         codes = _codes_from_wire(d_wire, d_len, d_nex, wire)

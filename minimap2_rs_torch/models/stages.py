@@ -46,7 +46,9 @@ def unpack_codes2(codes2: torch.Tensor, lengths: torch.Tensor,
     codes = torch.where(pos[None, :] < lengths[:, None], codes, 4)
     # one spare slot takes the out-of-range padding entries
     flat = torch.cat([codes.reshape(-1), codes.new_zeros(1)])
-    flat[nex.to(torch.int64).clamp(0, B * L)] = 4
+    # a fill kernel: `flat[idx] = 4` would copy the 4 from host memory,
+    # which a captured program cannot do
+    flat.index_fill_(0, nex.to(torch.int64).clamp(0, B * L), 4)
     return flat[: B * L].reshape(B, L)
 
 

@@ -157,8 +157,9 @@ def finalize_from_aux(
 
     cov = (qe - qs).clamp(min=0)
     uncovered = (qlen - cov).clamp(min=0)
-    one = torch.tensor(1.0, dtype=torch.float32, device=dev)
-    ratio = torch.tensor(rmq_rescue_ratio, dtype=torch.float32, device=dev)
+    # filled on the device: a host copy cannot be captured into a graph
+    one = torch.full((), 1.0, dtype=torch.float32, device=dev)
+    ratio = torch.full((), rmq_rescue_ratio, dtype=torch.float32, device=dev)
     rescue = (uncovered > rmq_rescue_size) | (
         cov.to(torch.float32) < qlen.to(torch.float32) * (one - ratio)
     )

@@ -53,7 +53,8 @@ def query_occ_filter(ks: torch.Tensor, n_mini: torch.Tensor, q_occ_max: int,
     nxt_boundary[:, :-1] = boundary[:, 1:]
     last = torch.where(nxt_boundary, idx, M).flip(1).cummin(dim=1).values.flip(1)
     counts = last - first + 1
-    frac = torch.tensor(q_occ_frac, dtype=torch.float32, device=dev)
+    # filled on the device: a host copy cannot be captured into a graph
+    frac = torch.full((), q_occ_frac, dtype=torch.float32, device=dev)
     cutoff = (n_mini.to(torch.float32) * frac).to(torch.int64)
     n = n_mini.to(torch.int64)[:, None]
     drop = (counts > q_occ_max) & (counts > cutoff[:, None]) & (n > q_occ_max)

@@ -159,6 +159,17 @@ def _load():
         i32p, u8p, i64p, u8p, i64p, i32p,
         ctypes.c_int32, i32p, u8p, ctypes.c_int64, i64p,
     ]
+    lib.mm2t_mmi_selfcheck.restype = ctypes.c_int64
+    lib.mm2t_mmi_selfcheck.argtypes = [u8p, ctypes.c_int64]
+    lib.mm2t_build_pairs.restype = ctypes.c_int64
+    lib.mm2t_build_pairs.argtypes = [
+        u8p, i64p, ctypes.c_int64,                     # codes, seq_off, n_seq
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,  # w, k, is_hpc
+        ctypes.c_int32, ctypes.c_int64,                # n_threads, chunk
+        u64p, u64p, ctypes.c_int64,                    # out_keys, out_rps, cap
+    ]
+    lib.mm2t_get_build_stage_s.restype = None
+    lib.mm2t_get_build_stage_s.argtypes = [f64p]
     u32p = np.ctypeslib.ndpointer(dtype=np.uint32, flags="C_CONTIGUOUS")
     lib.mm2t_build_index.restype = ctypes.c_int64
     lib.mm2t_build_index.argtypes = [
@@ -170,6 +181,72 @@ def _load():
     ]
     _LIB = lib
     return _LIB
+
+
+def last_build_stage_s() -> dict | None:
+    """Seconds of each stage ({scan, pack, sort, flatten}) of this
+    process's most recent native index build, rounded to 1 ms, or None
+    when the native library is unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    out = np.zeros(4, dtype=np.float64)
+    lib.mm2t_get_build_stage_s(out)
+    return {name: round(float(v), 3)
+            for name, v in zip(("scan", "pack", "sort", "flatten"), out)}
+
+
+def native_build_pairs(
+    codes: np.ndarray, seq_off: np.ndarray, w: int, k: int,
+    is_hpc: bool = False, n_threads: int | None = None,
+    chunk: int = 1 << 22,
+):
+    """Threaded exact-scan index build (the reference's rayon region,
+    index.rs:442-452) of concatenated nt4 `codes` with int64 per-sequence
+    offsets `seq_off` (n_seq + 1): (keys, rid_pos_strand) uint64 arrays
+    sorted by (key, rps), or None when the native library is
+    unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    if n_threads is None:
+        n_threads = max(1, os.cpu_count() or 1)
+    codes = np.ascontiguousarray(codes, dtype=np.uint8)
+    seq_off = np.ascontiguousarray(seq_off, dtype=np.int64)
+    n_seq = seq_off.shape[0] - 1
+
+    def run(cap):
+        keys = np.empty(cap, dtype=np.uint64)
+        rps = np.empty(cap, dtype=np.uint64)
+        n = lib.mm2t_build_pairs(codes, seq_off, n_seq, w, k, int(is_hpc),
+                                 int(n_threads), chunk, keys, rps, cap)
+        return n, keys, rps
+
+    # minimizer density ~2/(w+1); 0.3 a base is a generous first guess
+    n, keys, rps = run(max(int(codes.shape[0] * 0.3) + 1024, 1 << 12))
+    if n < 0:
+        raise ValueError("invalid build parameters")
+    if n > keys.shape[0]:
+        n, keys, rps = run(n)
+    return keys[:n], rps[:n]
+
+
+def native_mmi_selfcheck(path_or_bytes) -> int | None:
+    """Parse an MMI\\x02 file on its own (a C++ transcription of
+    index.rs:361-424, apart from the Python serializer) and check that its
+    hash table equals the minimizers re-sketched from its packed
+    sequences. Returns 0 on success, a negative stage code on failure
+    (runtime/native/mm2t_host.cpp), or None when the native library is
+    unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    if isinstance(path_or_bytes, (bytes, bytearray)):
+        data = bytes(path_or_bytes)
+    else:
+        data = Path(path_or_bytes).read_bytes()
+    arr = np.frombuffer(data, dtype=np.uint8)
+    return int(lib.mm2t_mmi_selfcheck(arr, arr.shape[0]))
 
 
 def _madv_huge(arr: np.ndarray) -> np.ndarray:
@@ -397,9 +474,10 @@ def native_format_lite(
     return out[:total].tobytes(), line_off
 
 
-def native_sketch(seq: bytes, w: int, k: int, rid: int = 0, is_hpc: bool = False):
-    """Exact reference-order minimizer scan; returns list[(key_span, rps)]
-    or None when the native library is unavailable."""
+def native_sketch_array(seq: bytes, w: int, k: int, rid: int = 0, is_hpc: bool = False):
+    """Exact reference-order minimizer scan: an (n, 2) uint64 array of
+    (key_span, rid_pos_strand) rows, or None when the native library is
+    unavailable."""
     lib = _load()
     if lib is None:
         return None
@@ -412,8 +490,14 @@ def native_sketch(seq: bytes, w: int, k: int, rid: int = 0, is_hpc: bool = False
     if n > cap:
         out = np.empty(2 * n, dtype=np.uint64)
         n = lib.mm2t_sketch(arr, arr.shape[0], w, k, rid, int(is_hpc), out, n)
-    recs = out[: 2 * n].reshape(-1, 2)
-    return [(int(a), int(b)) for a, b in recs]
+    return out[: 2 * n].reshape(-1, 2).copy()
+
+
+def native_sketch(seq: bytes, w: int, k: int, rid: int = 0, is_hpc: bool = False):
+    """native_sketch_array as a list of (key_span, rps) int pairs, or
+    None when the native library is unavailable."""
+    recs = native_sketch_array(seq, w, k, rid, is_hpc)
+    return None if recs is None else [(int(a), int(b)) for a, b in recs]
 
 
 def native_chain_dp(anchors: np.ndarray, p):

@@ -184,3 +184,67 @@ def test_native_format_lite_equals_jax():
     got, want = thost.native_format_lite(*args), jhost.native_format_lite(*args)
     assert got[0] == want[0] and len(got[0]) > 0
     np.testing.assert_array_equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("hpc", [False, True])
+def test_native_build_pairs_equals_jax(hpc):
+    """The threaded exact-scan build's (key, rid_pos_strand) pairs of a
+    60 kb genome in two sequences, whole and in 4 kb chunks with their
+    halos, equal the JAX package's."""
+    from minimap2_rs_torch.utils.packing import nt4_encode
+
+    g = random_genome(60_000, seed=47)
+    codes = nt4_encode(g)
+    off = np.array([0, 35_000, 60_000], dtype=np.int64)
+    for chunk in (1 << 22, 1 << 12):
+        got = thost.native_build_pairs(codes, off, 10, 15, hpc, n_threads=2, chunk=chunk)
+        want = jhost.native_build_pairs(codes, off, 10, 15, hpc, n_threads=2, chunk=chunk)
+        assert got[0].shape[0] > 5000
+        for g_, w_ in zip(got, want):
+            np.testing.assert_array_equal(g_, w_)
+
+
+def test_native_mmi_selfcheck_equals_jax(tmp_path):
+    """The golden .mmi passes the native self-check from a path and from
+    its bytes; a copy with a flipped byte in each region fails it, with
+    the JAX package's stage code."""
+    from pathlib import Path
+
+    gold = Path(__file__).parent / "golden" / "golden_w10k15.mmi"
+    data = gold.read_bytes()
+    assert thost.native_mmi_selfcheck(str(gold)) == 0
+    assert thost.native_mmi_selfcheck(data) == 0
+    for off in (2, 40, len(data) // 2, len(data) - 9):
+        bad = bytearray(data)
+        bad[off] ^= 0x5A
+        code = thost.native_mmi_selfcheck(bytes(bad))
+        assert code != 0 and code == jhost.native_mmi_selfcheck(bytes(bad)), off
+    cut = tmp_path / "cut.mmi"
+    cut.write_bytes(data[: len(data) // 3])
+    assert thost.native_mmi_selfcheck(cut) == jhost.native_mmi_selfcheck(str(cut)) != 0
+
+
+def test_native_sketch_array_equals_jax():
+    rng = np.random.default_rng(53)
+    for _ in range(20):
+        seq = _seq(rng, int(rng.integers(0, 900)))
+        w, k = int(rng.integers(1, 16)), int(rng.integers(2, 29))
+        hpc = bool(rng.integers(0, 2))
+        got = thost.native_sketch_array(seq, w, k, rid=5, is_hpc=hpc)
+        want = jhost.native_sketch_array(seq, w, k, rid=5, is_hpc=hpc)
+        assert got.dtype == np.uint64 and got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
+
+
+def test_last_build_stage_s_after_native_build():
+    """Each native index build records its four stages' seconds; the
+    port reads the same keys as the JAX package."""
+    g = random_genome(1_000_000, seed=59)
+    off = np.array([0, len(g)], dtype=np.int64)
+    thost.native_build_index(g, off, 10, 15, n_threads=2)
+    st = thost.last_build_stage_s()
+    assert list(st) == ["scan", "pack", "sort", "flatten"]
+    # a 1 Mbp scan and sort take milliseconds, past the 1 ms rounding
+    assert all(v >= 0.0 for v in st.values()) and st["scan"] + st["sort"] > 0.0
+    jhost.native_build_index(g, off, 10, 15, n_threads=2)
+    assert set(jhost.last_build_stage_s()) == set(st)
