@@ -34,15 +34,22 @@ Mapper.map_reads_paf:
   * extension: both banded extension functions on 64 random pairs, on
     the card equal to the CPU;
   * mesh dp: MeshMapper (dp = 1) over a 1-rank NCCL group on the
-    headline reads, byte-identical to the single-device Mapper, its
-    median pass beside the Mapper's;
-  * CLI: `align --mesh 1` equal to `align` on the headline's FASTA;
+    headline reads, captured (its programs hold the wire-row all_gather)
+    and a graphs=False twin, in turns with the captured Mapper, all
+    byte-identical, every timed stage of the captured ones a replay,
+    their medians beside the lite headline phase's; one profiled pass
+    of each mesh, in which every graph launch holds the NCCL work of the
+    collectives its program recorded and the two meshes count the same
+    collective calls and bytes;
+  * CLI: `align --mesh 1` equal to `align` on the headline's FASTA, its
+    MeshMapper replaying every batch after each key's first;
   * mesh sharded: a 10 Mbp genome (seed 0, k=15), 2,048 reads of
     500-1000 bp (seed 1) and 32 of 5-20 kb (seed 3), the index
     hash-range-sharded over 2 gloo ranks that share cuda:0
     (minimap2_rs_torch.parallel.ranks.spawn with share_device; NCCL
     refuses two ranks on one device, so gloo carries the collectives,
-    staged through host memory). Each rank's shard takes the two-phase
+    staged through host memory, and the mesh runs with graphs=False:
+    no capture can hold a host-staged collective). Each rank's shard takes the two-phase
     table (dm_entry 2); the PAF is the same on both ranks and
     byte-identical to the oracle on every 16th short read and every
     long read; each rank's collective index statistics and quantile
@@ -64,23 +71,24 @@ Mapper.map_reads_paf:
 Every mapping phase is byte-identical to the host oracle (default
 parameters unless said otherwise).
 
-Every single-device Mapper issues its device stages as captured
-programs (models/programs.py: a key's first batch runs eagerly, its
-second captures a CUDA graph, later ones replay it). Each mapping phase
-starts with a first pass (and, on captured programs, a second) that
-keep the kernels' inputs (one per kernel, shape class, band and
-capacity; outside a capture only) and are timed and printed beside the
-medians; each such phase's timed passes must then show no eager stage
-and a replay for every stage. The lite and general headline and both
-long-read phases also run a twin Mapper with graphs=False, in turns
-with the captured one (a b b a ...): the two must give the same bytes,
+Every single-device Mapper, and the 1-rank NCCL MeshMapper, issues its
+device stages as captured programs (models/programs.py: a key's first
+batch runs eagerly, its second captures a CUDA graph, later ones replay
+it). Each mapping phase starts with a first pass (and, on captured
+programs, a second) that keep the kernels' inputs (one per kernel,
+shape class, band and capacity; outside a capture only) and are timed
+and printed beside the medians; each such phase's timed passes must
+then show no eager stage and a replay for every stage. The lite and
+general headline, both long-read phases and the mesh dp phase also run
+a twin with graphs=False, in turns with the captured one (a b b a
+...): the two must give the same bytes,
 and both medians and their host seconds (submit, encode, upload,
 stage_issue, d2h_issue, d2h+wait, post, ...) are printed side by side.
 Each mapper's timed passes count the launches per kernel and shape
 apart, each replay adding the launches its capture recorded
 (kernels/counts.py); every path must launch the phase's kernels, and
 only the captured (main) path's counts go to the kernel rows. Each of
-those eight mappers then maps one pass under torch.profiler (CUDA
+those ten mappers then maps one pass under torch.profiler (CUDA
 activity): the card's kernels and copies and the host's launch calls
 per device stage, the device busy share and the lane kernels' share of
 the pass; the chain-DP and window-scan kernels in the trace must match
@@ -878,7 +886,12 @@ def _profile_pass(tag, mapper, reads, trace_dir: Path) -> dict:
     of the pass. The chain-DP and window-scan kernels the card ran must
     match the launches counted in the pass; on a captured mapper, the
     kernels of each graph launch must match the launches its program
-    recorded at capture (kernels/counts.py), replay by replay."""
+    recorded at capture (kernels/counts.py), replay by replay. A graph
+    launch whose program recorded collectives (a MeshMapper's) must hold
+    the card's work of each: an NCCL kernel, or on a 1-rank group the
+    device-to-device copy NCCL issues in its place (in a graph, a DtoD
+    copy or a `memcpy*` kernel; the stage's own copies count too, so this
+    bounds the collectives from below only)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -891,8 +904,12 @@ def _profile_pass(tag, mapper, reads, trace_dir: Path) -> dict:
     orig_replay = counts.replay
 
     def replay(recorded):
-        replays.append(_families(k for _d, k in recorded))
+        # the launch keys, and the collectives (deferred by Mesh._run)
+        replays.append(_families(e[1] for e in recorded if not callable(e)))
+        collectives.append(sum(map(callable, recorded)))
         orig_replay(recorded)
+
+    collectives = []
 
     mapper.stats = {}
     counts.replay = replay
@@ -911,12 +928,16 @@ def _profile_pass(tag, mapper, reads, trace_dir: Path) -> dict:
     n = mapper.stats["device_stages"]
     kinds, api, spans, lane_us = {}, {}, [], 0.0
     by_launch: dict = {}  # correlation id -> kernel names
+    copies: dict = {}  # correlation id -> device-to-device copies
     graph_launches = []
     for e in events:
         cat = e.get("cat", "")
         if cat in ("kernel", "gpu_memcpy", "gpu_memset"):
             kinds[cat] = kinds.get(cat, 0) + 1
             spans.append((e["ts"], e["ts"] + e.get("dur", 0)))
+            if cat == "gpu_memcpy" and "DtoD" in e["name"]:
+                c = e.get("args", {}).get("correlation")
+                copies[c] = copies.get(c, 0) + 1
             if cat == "kernel":
                 by_launch.setdefault(e.get("args", {}).get("correlation"), []).append(e["name"])
                 lane_us += e.get("dur", 0) if "chain_dp_lane_kernel" in e["name"] else 0
@@ -928,11 +949,28 @@ def _profile_pass(tag, mapper, reads, trace_dir: Path) -> dict:
     if ran != _families(k for k, v in counted.items() for _i in range(v)):
         raise AssertionError(f"[{tag}] the card ran {ran} chain-DP/window-scan kernels, the "
                              f"pass counted {counted}")
+    nccl = {}
     if mapper.programs is not None:
-        got = [_families(by_launch.get(c, [])) for _ts, c in sorted(graph_launches)]
+        order = [c for _ts, c in sorted(graph_launches)]
+        got = [_families(by_launch.get(c, [])) for c in order]
         if got != replays:
             raise AssertionError(f"[{tag}] kernels per graph launch {got} != the launches "
                                  f"recorded for each replayed program {replays}")
+        if any(collectives):
+            # per graph launch: collectives recorded, NCCL kernels, and
+            # device-to-device copies (a DtoD copy, or the memcpy kernel
+            # CUDA may run a graph's copy node as)
+            work = [(n, sum("nccl" in k.lower() for k in by_launch.get(c, [])),
+                     copies.get(c, 0) + sum(k.startswith("memcpy")
+                                            for k in by_launch.get(c, [])))
+                    for n, c in zip(collectives, order)]
+            if any(n and k + d < n for n, k, d in work):
+                raise AssertionError(f"[{tag}] a graph launch holds less NCCL work than "
+                                     f"the collectives its program recorded: {work}")
+            nccl = {"graph_launches": len(work),
+                    "collectives_recorded": sorted({n for n, _k, _d in work}),
+                    "nccl_kernels": sorted({k for _n, k, _d in work}),
+                    "device_copies": sorted({d for _n, _k, d in work})}
     busy, end = 0.0, float("-inf")
     for a, b in sorted(spans):
         busy += max(0.0, b - max(a, end))
@@ -943,6 +981,8 @@ def _profile_pass(tag, mapper, reads, trace_dir: Path) -> dict:
            "busy_share": busy / 1e6 / wall, "lane_ms": lane_us / 1e3,
            "lane_share": lane_us / 1e6 / wall, "kernels_checked": ran,
            "graph_launches_checked": len(replays)}
+    if nccl:
+        out["collectives_in_graph_launches"] = nccl
     print(f"{tag} profiled pass: {json.dumps(out)}")
     return out
 
@@ -954,51 +994,99 @@ def _launched(captured, key):
             if k[0] == key]
 
 
-def _mesh_dp_phase(idx, cp, mp, reads, lines, mapper_ms: float, mapper_stats: dict):
-    """MeshMapper (dp = 1) over a 1-rank NCCL group on the headline reads:
-    byte-identical to the single-device Mapper's `lines`, its median pass
-    printed beside the eager Mapper's, and the host seconds of its last
-    pass (encode, stage issue, the all_gather) beside the eager Mapper's
-    (the mesh steps run eagerly). Returns its captured kernel inputs and
-    its timed passes' launches."""
+def _mesh_dp_phase(idx, cp, mp, reads, lines, mapper, mapper_runs: dict, trace_dir: Path):
+    """MeshMapper (dp = 1) over a 1-rank NCCL group on the headline reads,
+    captured (its programs hold the wire-row all_gather) and a
+    graphs=False twin on a group of its own, in turns with the captured
+    single-device `mapper` (a b c c b a): all byte-identical to the
+    Mapper's `lines`, every timed stage of the captured ones a replay;
+    the three medians printed beside the lite headline phase's
+    (`mapper_runs`, same call). One profiled pass of each mesh: every
+    graph launch holds the NCCL work of the collectives its program
+    recorded, and the two meshes' collective calls and bytes over that
+    pass are equal. Returns the captured mesh's kernel inputs and its
+    timed passes' launches."""
     from minimap2_rs_torch.models.mesh_mapper import make_mesh_mapper
 
-    mm = make_mesh_mapper(idx, cp, mp, dp=1, device="cuda", batch_size=1024)
-    if mm.mesh.backend != "nccl":
-        raise AssertionError(f"the 1-rank mesh took {mm.mesh.backend}, not nccl")
+    mms = {"captured": make_mesh_mapper(idx, cp, mp, dp=1, device="cuda", batch_size=1024),
+           "eager": make_mesh_mapper(idx, cp, mp, dp=1, device="cuda", batch_size=1024,
+                                     graphs=False)}
+    for label, mm in mms.items():
+        if mm.mesh.backend != "nccl" or (mm.programs is None) != (label == "eager"):
+            raise AssertionError(f"the 1-rank {label} mesh took {mm.mesh.backend}, "
+                                 f"programs {mm.programs}")
     tag = "mesh dp (NCCL, 1 rank)"
     launches: dict = {}
-    mlines, runs, cap = _map_phase(tag, mm, reads, 3, ["chain_dp_aux/static"], launches)
-    mtimes, mstats = runs["eager"]["times"], runs["eager"]["stats"]
+    mlines, runs, cap = _map_phase(tag, {**mms, "Mapper captured": mapper}, reads, 3,
+                                   ["chain_dp_aux/static"], launches)
     if mlines != lines:
         first = next((f"{a!r} != {b!r}" for a, b in zip(mlines, lines) if a != b),
                      f"line counts {len(mlines)} vs {len(lines)}")
         raise AssertionError(f"[{tag}] != the single-device Mapper: {first}")
-    print(f"{tag} median pass {_median(mtimes):.4f} s beside the eager single-device "
-          f"Mapper's {mapper_ms:.4f} s (same call); {len(mlines)} PAF lines byte-identical "
-          f"to the Mapper's; collectives over 4 passes: {json.dumps(mm.mesh.stats)}")
-    keys = ("submit", "encode", "stage_issue", "h2d_bytes", "d2h+wait", "post")
-    print(f"{tag} last pass beside the eager Mapper's last pass: " + json.dumps(
-        {kk: [mstats.get(kk), mapper_stats.get(kk)] for kk in keys}))
+    paths = {f"mesh {x}": runs[x] for x in mms}
+    paths["Mapper captured, in turns"] = runs["Mapper captured"]
+    paths.update({f"Mapper {x}, lite headline phase": mapper_runs[x]
+                  for x in ("captured", "eager")})
+    print(f"{tag}: {len(mlines)} PAF lines byte-identical to the single-device Mapper's; "
+          f"median pass (s, same call) "
+          + json.dumps({k: _median(r["times"]) for k, r in paths.items()}))
+    keys = ("submit", "encode", "upload", "stage_issue", "d2h_issue", "d2h+wait", "post")
+    print(f"{tag} last pass of each: " + json.dumps(
+        {k: {x: r["stats"].get(k) for x, r in paths.items()} for k in keys}))
+    for mm in mms.values():
+        mm.mesh.stats.clear()
+    for label, mm in mms.items():
+        _profile_pass(f"{tag} ({label})", mm, reads, trace_dir)
+    coll = {label: {k: (v["calls"], v["bytes_sent"]) for k, v in mm.mesh.stats.items()}
+            for label, mm in mms.items()}
+    if coll["captured"] != coll["eager"] or not coll["eager"]:
+        raise AssertionError(f"[{tag}] collectives of the profiled pass (calls, bytes): {coll}")
+    st = mms["captured"].mesh.stats
+    if any(v["replayed_calls"] != v["calls"] for v in st.values()):
+        raise AssertionError(f"[{tag}] a collective of the profiled pass was not replayed: {st}")
+    print(f"{tag} collectives of the profiled pass, captured (calls equal to the eager "
+          f"twin's, all replayed): {json.dumps(st)}; eager: "
+          f"{json.dumps(mms['eager'].mesh.stats)}")
     return cap, launches
 
 
 def _mesh_cli_phase(cli, cli_dir: Path, genome: bytes, reads) -> None:
-    """`align --mesh 1` against `align` on the headline's FASTA files."""
+    """`align --mesh 1` against `align` on the headline's FASTA files; the
+    mesh run's MeshMapper must issue its stages through captured programs
+    (a replay on every batch after each key's first)."""
+    from minimap2_rs_torch.models.mesh_mapper import MeshMapper
+
     ref_fa, qry_fa = cli_dir / "headline_ref.fa", cli_dir / "headline_reads.fa"
     ref_fa.write_bytes(b">chrB\n" + genome + b"\n")
     qry_fa.write_bytes(b"".join(b">" + n.encode() + b"\n" + s + b"\n" for n, s in reads))
-    out = []
-    for extra in ([], ["--mesh", "1"]):
-        paf = cli_dir / f"headline{'_mesh' if extra else ''}.paf"
-        t0 = time.perf_counter()
-        cli("align", ref_fa, qry_fa, "-o", paf, *extra)
-        out.append(paf.read_bytes())
-        print(f"CLI align {' '.join(extra)}: {time.perf_counter() - t0:.2f} s "
-              f"(index build included), {out[-1].count(b'\n')} lines")
+    out, mesh_runs = [], []
+    orig = MeshMapper.map_reads_paf
+
+    def spy(self, rl):
+        blob = orig(self, rl)
+        mesh_runs.append((self.programs is not None, dict(self.stats)))
+        return blob
+
+    MeshMapper.map_reads_paf = spy
+    try:
+        for extra in ([], ["--mesh", "1"]):
+            paf = cli_dir / f"headline{'_mesh' if extra else ''}.paf"
+            t0 = time.perf_counter()
+            cli("align", ref_fa, qry_fa, "-o", paf, *extra)
+            out.append(paf.read_bytes())
+            print(f"CLI align {' '.join(extra)}: {time.perf_counter() - t0:.2f} s "
+                  f"(index build included), {out[-1].count(b'\n')} lines")
+    finally:
+        MeshMapper.map_reads_paf = orig
     if out[0] != out[1] or not out[0]:
         raise AssertionError("CLI align --mesh 1 != align on the headline")
-    print("CLI align --mesh 1 == align on the headline FASTA, byte for byte")
+    (captured, st), = mesh_runs
+    stages = json.dumps({k: st.get(k) for k in PROGRAM_STATS})
+    if not captured or not st.get("graph_replays") or (
+            st["graph_replays"] + st.get("eager_stages", 0) != st["device_stages"]):
+        raise AssertionError(f"CLI align --mesh 1 did not replay its stages: {stages}")
+    print(f"CLI align --mesh 1 == align on the headline FASTA, byte for byte; its stages: "
+          f"{stages}")
 
 
 # the sharded phase: two gloo ranks on one card; a 10 Mbp genome gives
@@ -1033,8 +1121,10 @@ def _mesh_sharded_phase(cp, mp, store_dir: Path):
     long_ = [(f"long_{n}", s) for n, s, *_ in simulate_reads(
         g10, 32, read_len=(5000, 20000), seed=3)]
     print(f"mesh sharded set-up {time.perf_counter() - t0:.1f} s: {idx10.keys.shape[0]} keys")
+    # gloo ranks on one card stage their collectives through host memory,
+    # which no capture can hold: this mesh runs eagerly
     run = dict(name="sharded", idx=idx10, cp=cp, mp=mp, reads=short + long_, dp=1,
-               ix=SHARDED_RANKS, sharded=True, kw=dict(batch_size=1024))
+               ix=SHARDED_RANKS, sharded=True, kw=dict(batch_size=1024, graphs=False))
     t0 = time.perf_counter()
     res = ranks.spawn(ranks.mesh_map, SHARDED_RANKS, [run], store_dir=store_dir,
                       device="cuda:0", share_device=True, timeout_s=SHARDED_TIMEOUT_S,
@@ -1405,8 +1495,8 @@ def main() -> int:
               f"{got[0][:4].tolist()}")
 
     # ---- the multi-GPU mapper: a 1-rank NCCL mesh, the CLI, 2 gloo ranks --
-    cap_mesh_dp, n_mesh_dp = _mesh_dp_phase(idx, cp, mp, reads, lines, dt_eager,
-                                            runs["eager"]["stats"])
+    cap_mesh_dp, n_mesh_dp = _mesh_dp_phase(idx, cp, mp, reads, lines, mapper, runs,
+                                            trace_dir)
     _mesh_cli_phase(cli, cli_dir, genome, reads)
     cap_mesh_sh, n_mesh_sh = _mesh_sharded_phase(cp, mp, cli_dir)
     print(f"main-path launches per kernel/shape, the single-device phases: {total}; "

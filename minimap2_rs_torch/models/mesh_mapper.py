@@ -15,8 +15,24 @@ Parameterizations off the lite path (min_cnt <= 1) run the inherited
 single-device general path on every rank, as in the JAX package: they
 need the host backtrack anyway.
 
-Every stage runs eagerly (graphs=False): the mesh steps issue
-collectives, and a gloo collective cannot be captured into a CUDA graph.
+On a CUDA device whose mesh runs NCCL, every device stage goes through
+the mapper's program cache (models/programs.py), as on Mapper: a key's
+first batch runs eagerly, its second is captured into one CUDA graph
+with the step's collectives inside (the dp or sharded step and the
+closing all_gather), and later batches replay it. The JAX package
+compiles each key once in the same way (MeshMapper._device_stage_lite,
+a jit of a shard_map with its collectives inside). Every NCCL
+communicator is made, and the sharded index uploaded, when the mapper
+is made: a capture may neither create a communicator nor copy from the
+host. Every rank makes the same bucketing, tier and wide decisions, so
+every rank sees the same sequence of keys, and with it the same first
+runs, captures, replays, least-recently-used evictions and resets of
+the cache's seen keys: each rank's collectives pair with the same
+collectives on the others, captured or not. A gloo mesh
+on a card (share_device=True) stages each collective through host
+memory (Mesh._run's x.cpu()), a host synchronisation no capture can
+hold, so it needs graphs=False; graphs=True there raises. On the CPU
+every stage runs eagerly.
 """
 
 from __future__ import annotations
@@ -42,18 +58,25 @@ class MeshMapper(Mapper):
 
     mesh: Mesh = None
     index_sharded: bool = False
-    graphs: bool = False
 
     def __post_init__(self):
-        super().__post_init__()
         if self.mesh is None:
             raise ValueError("MeshMapper needs a mesh")
-        if self.graphs:
-            raise ValueError("MeshMapper runs its stages eagerly (graphs=False): "
-                             "its collectives are not captured")
         if self.mesh.device != self.device:
             raise ValueError(f"mapper on {self.device}, mesh rank on {self.mesh.device}")
-        self._sidx = None
+        capture = self.graphs and self.device.type == "cuda"
+        if capture and self.mesh.backend != "nccl":
+            raise ValueError(
+                f"a {self.mesh.backend} mesh on {self.device} cannot be captured: it "
+                "stages every collective through host memory, a host synchronisation "
+                "no CUDA graph can hold; pass graphs=False")
+        super().__post_init__()
+        self.sidx = (ShardedDeviceIndex.from_host(
+            self.idx.keys, self.idx.starts, self.idx.counts, self.idx.positions,
+            n_shards=self.mesh.ix, key_bits=2 * self.idx.k, rank=self.mesh.ix_rank,
+            device=self.device) if self.index_sharded else None)
+        if capture:
+            self.mesh.start_communicators()
 
     @property
     def _sharded(self) -> bool:
@@ -78,16 +101,6 @@ class MeshMapper(Mapper):
     def _encode(self, seqs: list[bytes], B: int, bucket: int):
         return self._encode4(seqs + [b""] * (B - len(seqs)), B, bucket), None, "4bit"
 
-    def sharded_index(self) -> ShardedDeviceIndex:
-        """This rank's shard of the hash-range-sharded index (built once)."""
-        if self._sidx is None:
-            self._sidx = ShardedDeviceIndex.from_host(
-                self.idx.keys, self.idx.starts, self.idx.counts, self.idx.positions,
-                n_shards=self.mesh.ix, key_bits=2 * self.idx.k,
-                rank=self.mesh.ix_rank, device=self.device,
-            )
-        return self._sidx
-
     def _row_axis(self) -> str:
         """The axis a batch's rows split over: the world when the index is
         sharded, else dp (the ix ranks of a dp row map the same rows)."""
@@ -95,24 +108,22 @@ class MeshMapper(Mapper):
 
     def _rank_rows(self, arr):
         """This rank's rows of a lite batch array: the lite path uploads
-        and maps only those (the general path takes the whole batch)."""
+        and maps only those (the general path takes the whole batch).
+        Every rank gets the same shape, so no key differs by rank."""
         axis = self._row_axis()
         n = self.mesh.size(axis)
         r = self.mesh.rank if axis == "world" else self.mesh.dp_rank
         b = arr.shape[0] // n
         return arr[r * b:(r + 1) * b]
 
-    def _device_stage_lite(self, wire_arr, lengths, nex, scalars, *, stats, **kw):
-        return self._run_stage(self._mesh_stage_lite, (wire_arr, lengths, nex), stats,
-                               scalars=scalars, stats=stats, **kw)
-
-    def _mesh_stage_lite(self, d_wire, d_len, d_nex, *, scalars, wide, M, A, window,
-                         wire, max_chain_skip, stats):
-        """The dp or sharded step on this rank's rows, then the all_gather
-        of every rank's wire rows."""
+    def _device_stage_lite(self, wire_arr, lengths, nex, scalars, *, wide, M, A, window,
+                           wire, max_chain_skip, stats):
+        """The dp or sharded step on this rank's rows through _run_stage.
+        The step's statics are the key's; the bytes its collectives must
+        send are added to stats here, from the shapes, on every batch
+        (a replay runs no Python)."""
         if wire != "4bit":
             raise ValueError("the mesh programs take the 4-bit wire")
-        codes = _codes_from_wire(d_wire, d_len, d_nex, wire)
         n_ix = self.mesh.ix
         if self._sharded:
             # hash64 spreads a read's occurrences evenly over the shards, so
@@ -128,17 +139,25 @@ class MeshMapper(Mapper):
             flag_window_ovf=window < min(self.cp.max_chain_iter, A_total),
             max_chain_skip=max_chain_skip, wide=wide,
         )
+        # every rank issues this batch with the same statics and shapes
+        # (_rank_rows), so the cache runs, captures, replays or evicts it
+        # on every rank alike: nothing rank-dependent enters the key
+        if self._sharded:
+            payload = sharded_payload_bytes(statics, lengths.shape[0] * n_ix, n_ix)
+            _add_stats(stats, "collective_payload_bytes",
+                       payload["total_collective_bytes_per_rank"])
+        return self._run_stage(self._mesh_stage_lite, (wire_arr, lengths, nex), stats,
+                               scalars=scalars, **statics)
+
+    def _mesh_stage_lite(self, d_wire, d_len, d_nex, *, scalars, **statics):
+        """The dp or sharded step on this rank's rows, then the all_gather
+        of every rank's wire rows."""
+        codes = _codes_from_wire(d_wire, d_len, d_nex, "4bit")
         common = (scalars, self._scalars_wide, self.mid_occ, self._tlens_dev,
                   self.cp.rmq_rescue_size, self.cp.rmq_rescue_ratio, self._log2_tab,
                   statics)
         if self.index_sharded:
-            if self._sharded:
-                # the bytes the step's collectives must send, from its shapes
-                payload = sharded_payload_bytes(statics, d_len.shape[0] * n_ix, n_ix)
-                _add_stats(stats, "collective_payload_bytes",
-                           payload["total_collective_bytes_per_rank"])
-            rows = map_batch_sharded_lite(self.mesh, self.sharded_index(), codes, d_len,
-                                          *common)
+            rows = map_batch_sharded_lite(self.mesh, self.sidx, codes, d_len, *common)
         else:
             rows = map_batch_dp_lite(self.dev_idx, codes, d_len, *common)
         return self.mesh.all_gather(rows, self._row_axis())

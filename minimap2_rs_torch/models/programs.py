@@ -4,8 +4,10 @@ CUDA graph that later batches replay.
 The port's counterpart of the JAX mapper's executable per shape
 (minimap2_rs_tpu/models/mapper.py:396-435: _device_stage_lite compiles
 _fused_map_stage_lite once per key, :415-418, and keeps it in
-_lite_exec). A CUDA Mapper issues each device stage through a
-ProgramCache (Mapper.graphs; models/mapper.py):
+_lite_exec; MeshMapper keeps its mesh steps in _mesh_exec). A CUDA
+Mapper issues each device stage through a ProgramCache (Mapper.graphs;
+models/mapper.py), and so does a MeshMapper on an NCCL mesh, whose
+captured steps hold their collectives (models/mesh_mapper.py):
 
   * The first batch of a key runs the stage eagerly (run_eager): a key
     that never comes back, such as the single rescue call of a one-shot
@@ -41,7 +43,14 @@ never overlap and every replay's copy-out is queued right after it.
 
 Nothing in a captured stage may synchronise with the host or copy from
 host memory: a capture that does raises, and so does a failed replay.
-A CUDA mapper never falls back to running eagerly.
+A CUDA mapper never falls back to running eagerly. A collective captured
+with its stage is replayed with it: NCCL queues its kernels into the
+capture (every communicator was made before, Mesh.start_communicators),
+and Mesh.stats counts it on each replay (kernels/counts.py). A gloo
+collective stages through host memory and cannot be captured.
+
+Where there is no card, ReplayStandIn takes the graph's place and runs
+the same plumbing (the CPU tests and their spawned ranks).
 """
 
 from __future__ import annotations
@@ -140,21 +149,41 @@ class CudaGraph:
         self._graph.replay()
 
 
+class ReplayStandIn:
+    """CudaGraph's stand-in where there is no card: capture records the
+    stage and returns its output as the static output; replay re-runs the
+    stage on the static input buffers and writes the result into that
+    same output, as a graph replay does. What the stage counts (kernel
+    launches, collectives) goes to a recording it drops: a graph replay
+    runs no Python, and the cache adds the capture's record instead."""
+
+    def __init__(self, pool, stream):
+        self.fn = self.out = None
+
+    def capture(self, fn):
+        self.fn = fn
+        self.out = fn()
+        return self.out
+
+    def replay(self):
+        with counts.recording():
+            self.out.copy_(self.fn())
+
+
 @dataclasses.dataclass
 class _Program:
     inputs: tuple          # the static input buffers on the device
     graph: object
     out: torch.Tensor      # the graph's static output
-    launches: list         # the kernel launches recorded in the capture
+    launches: list         # the launches (and collectives) recorded in the capture
     statics: dict          # holds the identity statics alive
 
 
 class ProgramCache:
     """Captured programs of one device, by program_key, at most
     `max_programs` live. `graph(pool, stream)` makes a program's graph:
-    CudaGraph on the card; a stand-in with the same capture/replay
-    methods elsewhere (the tests run the plumbing on the CPU with one
-    that re-runs the stage)."""
+    CudaGraph on the card; elsewhere a stand-in with the same
+    capture/replay methods (ReplayStandIn re-runs the stage)."""
 
     def __init__(self, device, graph=CudaGraph, max_programs: int = 32):
         self.device = torch.device(device)

@@ -15,7 +15,9 @@ the same CUDA device and the ranks talk through gloo, since NCCL refuses
 two ranks on one device. Gloo collectives stage CUDA tensors through
 host memory, chosen by the backend; NCCL collectives take the device
 tensors. Each collective's count, bytes sent by this rank, host seconds
-and transport are kept in `Mesh.stats`.
+and transport are kept in `Mesh.stats`; a collective captured into a
+CUDA graph is counted on every replay (calls, bytes and replayed calls;
+its seconds stay those of the collectives issued eagerly).
 
 The groups are made with new_group rather than init_device_mesh, which
 sets each rank's device from its rank and so cannot lay several ranks on
@@ -33,6 +35,7 @@ import torch
 import torch.distributed as dist
 
 from ..device import resolve_device
+from ..kernels import counts
 
 # seconds a collective (and the group's start) may wait for the other
 # ranks before it raises: ranks that issue different sequences deadlock
@@ -108,22 +111,38 @@ class Mesh:
 
     def _run(self, name: str, axis: str, x: torch.Tensor, sent: int, fn) -> torch.Tensor:
         """fn(input) -> output on the transport the backend takes; keeps
-        the collective's count, bytes sent, seconds and transport."""
+        the collective's count, bytes sent, seconds and transport. Inside
+        a recording (a capture of a device program, kernels/counts.py)
+        nothing has run yet: each replay of the program counts the call,
+        its bytes and one replayed call, and no seconds."""
         staged = self.backend == "gloo" and x.is_cuda
         t0 = time.perf_counter()
         out = fn(x.cpu() if staged else x.contiguous())
         if staged:
             out = out.to(x.device)
-        st = self.stats.setdefault(f"{name}/{axis}", {
-            "calls": 0, "bytes_sent": 0, "seconds": 0.0,
-            "transport": f"{self.backend}, " + (
-                "staged through host memory" if staged else
-                "device memory" if x.is_cuda else "host memory"),
-        })
-        st["calls"] += 1
-        st["bytes_sent"] += sent
-        st["seconds"] += time.perf_counter() - t0
+        transport = f"{self.backend}, " + ("staged through host memory" if staged else
+                                           "device memory" if x.is_cuda else "host memory")
+        key = f"{name}/{axis}"
+        if not counts.defer(lambda: self._tally(key, transport, sent, replayed=1)):
+            self._tally(key, transport, sent, seconds=time.perf_counter() - t0)
         return out
+
+    def _tally(self, key: str, transport: str, sent: int, seconds: float = 0.0,
+               replayed: int = 0) -> None:
+        st = self.stats.setdefault(key, {"calls": 0, "replayed_calls": 0, "bytes_sent": 0,
+                                         "seconds": 0.0, "transport": transport})
+        st["calls"] += 1
+        st["replayed_calls"] += replayed
+        st["bytes_sent"] += sent
+        st["seconds"] += seconds
+
+    def start_communicators(self) -> None:
+        """One small collective on each group, not counted in `stats`.
+        torch makes a group's NCCL communicator at its first collective,
+        which must never be inside a capture (it allocates and
+        synchronises)."""
+        for group in self.groups.values():
+            dist.all_reduce(torch.zeros(1, device=self.device), group=group)
 
     def all_gather(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """The group's x concatenated along dim 0 in group-rank order."""

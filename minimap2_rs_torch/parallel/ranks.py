@@ -195,10 +195,14 @@ def mesh_map(rank: int, world_size: int, runs: list, *, device: str | torch.devi
              share_device: bool = False, passes: int = 0, hold_kernels: bool = False,
              fracs=(), dm_entry: int | None = None) -> dict:
     """MeshMapper runs on this rank, on `device`. Each run is a dict: name, idx (an
-    OracleIndex), cp, mp, reads, dp, ix, sharded and kw (Mapper fields).
-    Its result holds the PAF blob of a first pass, then, with passes > 0,
-    the times of `passes` more passes, their kernel launch counts (set to
-    0 just before them, read just after) and the last pass's stats; the
+    OracleIndex), cp, mp, reads, dp, ix, sharded, kw (Mapper fields) and,
+    optionally, passes (in place of `passes`) and graph (the mapper's
+    programs become ProgramCache(device, graph=graph): on the CPU,
+    models/programs.ReplayStandIn runs the capture plumbing). Its result
+    holds the PAF blob of a first pass, then, with passes > 0, the times
+    of `passes` more passes, their kernel launch counts (set to
+    0 just before them, read just after), each pass's stats and the last
+    pass's apart; the
     collective stats of those passes (of the first without them); the
     mapper's dm_entry (this rank's shard's when sharded); with
     hold_kernels, the chain kernels' inputs captured in the first pass,
@@ -209,6 +213,7 @@ def mesh_map(rank: int, world_size: int, runs: list, *, device: str | torch.devi
     from ..kernels import chain_dp as kchain
     from ..kernels import window_scan as kscan
     from ..models.mesh_mapper import make_mesh_mapper
+    from ..models.programs import ProgramCache
     from .pipeline import calc_mid_occ_allreduce, index_stats_allreduce
 
     out = {}
@@ -216,8 +221,11 @@ def mesh_map(rank: int, world_size: int, runs: list, *, device: str | torch.devi
         mm = make_mesh_mapper(run["idx"], run["cp"], run["mp"], dp=run["dp"], ix=run["ix"],
                               index_sharded=run["sharded"], device=device,
                               share_device=share_device, **run.get("kw", {}))
+        if run.get("graph") is not None:
+            mm.programs = ProgramCache(mm.device, graph=run["graph"])
         rl = run["reads"]
-        res = {"dm_entry": mm.sharded_index().dm_entry if run["sharded"]
+        n_passes = run.get("passes", passes)
+        res = {"dm_entry": mm.sidx.dm_entry if run["sharded"]
                else mm.dev_idx.dm_entry}
         if run["sharded"] and dm_entry is not None and res["dm_entry"] != dm_entry:
             raise AssertionError(f"rank {rank}: its shard has dm_entry {res['dm_entry']}, "
@@ -229,29 +237,31 @@ def mesh_map(rank: int, world_size: int, runs: list, *, device: str | torch.devi
         finally:
             kchain.captured = None
         res["first_stats"] = dict(mm.stats)
-        if passes:
-            times = []
+        if n_passes:
+            times, pass_stats = [], []
             mm.mesh.stats.clear()
             for mod in (kchain, kscan):
                 mod.reset_launches()
-            for _ in range(passes):
+            for _ in range(n_passes):
                 mm.stats = {}
                 t0 = time.perf_counter()
                 blob = mm.map_reads_paf(rl)
                 if mm.device.type == "cuda":
                     torch.cuda.synchronize(mm.device)
                 times.append(time.perf_counter() - t0)
+                pass_stats.append(dict(mm.stats))
             res["launches"] = {kk: v for mod in (kchain, kscan)
                                for kk, v in mod.launches.items() if v}
             res["times"] = times
-            res["stats"] = dict(mm.stats)
+            res["pass_stats"] = pass_stats
+            res["stats"] = pass_stats[-1]
             if blob != res["blob"]:
                 raise AssertionError("a timed pass gave other bytes than the first")
         res["collectives"] = {kk: dict(v) for kk, v in mm.mesh.stats.items()}
         if hold_kernels:
             res["kernels"] = _hold_to_plain(captured, mm._log2_tab)
         if run["sharded"]:
-            sidx = mm.sharded_index()
+            sidx = mm.sidx
             res["stats_allreduce"] = index_stats_allreduce(mm.mesh, sidx)
             res["mid_occ"] = {f: calc_mid_occ_allreduce(mm.mesh, sidx, f) for f in fracs}
         out[run["name"]] = res

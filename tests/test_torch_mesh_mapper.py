@@ -4,8 +4,10 @@ index (dp = 8) and of the hash-range-sharded index (dp = 2, ix = 4) must
 equal the host oracle's and the JAX MeshMapper's on its virtual
 8-device mesh; the longer-read sharded case (bucket crossing, rescue
 band switching) equals the JAX MeshMapper's bytes and the oracle within
-the single-device long-read tolerance. A 1-rank mesh in this process
-equals the single-device Mapper. The fixtures are tests/test_mesh_mapper.py's."""
+the single-device long-read tolerance; the sharded case again through
+the program cache (models/programs.ReplayStandIn in place of the CUDA
+graph) gives the same bytes and collectives on its replayed passes. A
+1-rank mesh in this process equals the single-device Mapper. The fixtures are tests/test_mesh_mapper.py's."""
 
 import numpy as np
 import pytest
@@ -24,6 +26,7 @@ from minimap2_rs_torch import config as tconfig  # noqa: E402
 from minimap2_rs_torch.models.index_builder import build_index_native  # noqa: E402
 from minimap2_rs_torch.models.mapper import Mapper  # noqa: E402
 from minimap2_rs_torch.models.mesh_mapper import make_mesh_mapper  # noqa: E402
+from minimap2_rs_torch.models.programs import ReplayStandIn  # noqa: E402
 from minimap2_rs_torch.parallel import ranks  # noqa: E402
 from minimap2_rs_torch.runtime import host as nhost  # noqa: E402
 
@@ -38,6 +41,10 @@ RUNS = [
     dict(name="sharded", dp=2, ix=4, sharded=True, reads="short", kw=MKW),
     # the world is 8 ranks, so (4, 2) stands in for the JAX test's (2, 2)
     dict(name="longer", dp=4, ix=2, sharded=True, reads="long", kw=LONG_KW),
+    # the sharded run again through the program cache with the stand-in
+    # graph: a first pass, then two in which every stage replays
+    dict(name="sharded_graphs", dp=2, ix=4, sharded=True, reads="short", kw=MKW,
+         graph=ReplayStandIn, passes=2),
 ]
 
 
@@ -64,10 +71,17 @@ def setup(tmp_path_factory):
                       store_dir=tmp_path_factory.mktemp("store"), device="cpu",
                       timeout_s=300)
     return dict(idx=idx, cp=cp, mp=mp, rl=rl, long_rl=long_rl, tidx=tidx, tcp=tcp,
-                host=map_reads(idx, rl, cp, mp), res=res)
+                host=map_reads(idx, rl, cp, mp), res=res, jax={})
 
 
 def _jax_blob(setup, dp, ix, sharded, reads, kw):
+    key = (dp, ix, sharded, id(reads))
+    if key not in setup["jax"]:
+        setup["jax"][key] = _jax_map(setup, dp, ix, sharded, reads, kw)
+    return setup["jax"][key]
+
+
+def _jax_map(setup, dp, ix, sharded, reads, kw):
     mm = JaxMeshMapper.from_oracle_index(setup["idx"], setup["cp"], setup["mp"],
                                          mesh=jmake_mesh(dp=dp, ix=ix),
                                          index_sharded=sharded, **kw)
@@ -95,6 +109,40 @@ def test_mesh_paf_equals_oracle_and_jax(setup, name):
                    for r in setup["res"])
     else:
         assert set(coll) == {"all_gather/dp"}
+
+
+def test_sharded_mesh_through_programs(setup):
+    """The sharded mode (dp = 2, ix = 4) through each rank's program cache
+    with the stand-in graph: the minimizer all_gather, the anchor
+    all_to_all and the wire-row all_gather captured with their stage. Every
+    pass's bytes equal the eager run's, the JAX MeshMapper's and the
+    oracle's; each key runs eagerly once, then is captured once; the two
+    later passes replay every stage, and their collectives count what two
+    eager passes send."""
+    res = [r["sharded_graphs"] for r in setup["res"]]
+    eager = [r["sharded"] for r in setup["res"]]
+    assert all(r["blob"] == eager[0]["blob"] for r in res)
+    assert _lines(res[0]["blob"]) == setup["host"]
+    assert res[0]["blob"] == _jax_blob(setup, 2, 4, True, setup["rl"], MKW)
+    for r, e in zip(res, eager):
+        first, later = r["first_stats"], r["pass_stats"]
+        n_keys = first["eager_stages"]
+        assert n_keys >= 2
+        assert first["device_stages"] == n_keys + first.get("graph_replays", 0)
+        assert first.get("graph_captures", 0) + sum(
+            st.get("graph_captures", 0) for st in later) == n_keys
+        for st in later:
+            assert "eager_stages" not in st and st["graph_replays"] == st["device_stages"]
+        assert "graph_captures" not in later[-1]
+        assert set(r["collectives"]) == set(e["collectives"]) == {
+            "all_gather/ix", "all_to_all/ix", "all_gather/world"}
+        for key, st in r["collectives"].items():
+            want = e["collectives"][key]
+            assert st["calls"] == 2 * want["calls"] == st["replayed_calls"] > 0
+            assert st["bytes_sent"] == 2 * want["bytes_sent"] > 0
+            assert want["replayed_calls"] == 0
+        assert (sum(st["collective_payload_bytes"] for st in later)
+                == 2 * e["first_stats"]["collective_payload_bytes"])
 
 
 def test_mesh_longer_reads_sharded(setup):

@@ -4,8 +4,10 @@ plumbing gives each batch the eager stage's output, with a stand-in for
 the CUDA graph that re-runs the recorded stage on the static buffers,
 and whole mapping passes through it equal the eager mapper's and the
 JAX package's oracle; a key is captured only when it comes back, and at
-most max_programs live; replays add the recorded kernel launches;
-MeshMapper stays eager. A real capture needs the card (chip_smoke.py)."""
+most max_programs live; replays add the recorded kernel launches; a
+1-rank MeshMapper captures its mesh steps, collectives included, as the
+Mapper does, and a gloo mesh on a card refuses to. A real capture needs
+the card (chip_smoke.py)."""
 
 import copy
 import dataclasses
@@ -21,34 +23,20 @@ from minimap2_rs_tpu.oracle.pipeline import map_reads as oracle_map
 from minimap2_rs_torch.kernels import counts
 from minimap2_rs_torch.models import mapper as tmapper
 from minimap2_rs_torch.models.index_builder import build_index_native
-from minimap2_rs_torch.models.mesh_mapper import make_mesh_mapper
-from minimap2_rs_torch.models.programs import COUNTERS, ProgramCache, program_key
+from minimap2_rs_torch.models.mesh_mapper import MeshMapper, make_mesh_mapper
+from minimap2_rs_torch.models.programs import (
+    COUNTERS,
+    ProgramCache,
+    ReplayStandIn,
+    program_key,
+)
+from minimap2_rs_torch.parallel.mesh import Mesh
 from minimap2_rs_torch.utils.seqsim import random_genome, simulate_reads
 
 torch.set_num_threads(2)
 
 W, K = 5, 11
 SMALL = dict(buckets=(256, 512), batch_size=8, mini_frac=0.6, anchor_frac=1.0)
-
-
-class ReplayStandIn:
-    """CudaGraph's stand-in: capture records the stage and returns its
-    output as the static output; replay re-runs the stage on the static
-    input buffers and writes the result into that same output, as a graph
-    replay does. Its kernel wrappers' counts go to a recording it drops: a
-    graph replay runs no Python."""
-
-    def __init__(self, pool, stream):
-        self.fn = self.out = None
-
-    def capture(self, fn):
-        self.fn = fn
-        self.out = fn()
-        return self.out
-
-    def replay(self):
-        with counts.recording():
-            self.out.copy_(self.fn())
 
 
 class RecordingCache(ProgramCache):
@@ -383,20 +371,93 @@ def test_recordings_do_not_nest():
     assert counts.count(d, "x") is True and d == {"x": 1}
 
 
-# ---- (d) MeshMapper stays eager ---------------------------------------------
+# ---- (d) MeshMapper through the program cache ------------------------------
 
-def test_mesh_mapper_stays_eager(small):
+def _jax_mesh_blob(genome, rl, sharded):
+    """The JAX MeshMapper's bytes on a 1-device mesh, index built by the
+    JAX package from the same genome."""
+    from minimap2_rs_tpu import config as jconfig
+    from minimap2_rs_tpu.models.mesh_mapper import MeshMapper as JaxMeshMapper
+    from minimap2_rs_tpu.oracle.index import build_index
+    from minimap2_rs_tpu.parallel.mesh import make_mesh as jmake_mesh
+
+    jidx = build_index([("chrA", genome)], jconfig.IndexParams(w=W, k=K))
+    mm = JaxMeshMapper.from_oracle_index(jidx, jconfig.ChainParams.defaults_for_k(K),
+                                         jconfig.MapParams(), mesh=jmake_mesh(dp=1, ix=1),
+                                         index_sharded=sharded, **SMALL)
+    return mm.map_reads_paf(rl)
+
+
+def _coll(mesh_stats):
+    return {k: (v["calls"], v["bytes_sent"]) for k, v in mesh_stats.items()}
+
+
+@pytest.mark.parametrize("sharded", [False, True])
+def test_mesh_mapper_through_programs(small, sharded):
+    """A 1-rank gloo MeshMapper on the CPU with the stand-in graph, over
+    three passes, beside an eager twin: each pass's bytes equal the
+    twin's, the oracle's and the JAX MeshMapper's; each key runs eagerly
+    once, is captured once and replays on every later pass (no stats
+    dict in the key); Mesh.stats counts the replayed collectives as the
+    twin counts its eager ones."""
     genome, idx, cp, mp = small
+    rl = _reads(genome, 12, seed=7)
+    rng = np.random.default_rng(8)
+    for ci in range(3):
+        a = int(rng.integers(0, 20_000))
+        rl.append((f"chim{ci}", genome[a: a + 200] + genome[a + 30_000: a + 30_200]))
     assert not dist.is_initialized()
     try:
-        mm = make_mesh_mapper(idx, cp, mp, dp=1, device="cpu", **SMALL)
-        assert mm.graphs is False and mm.programs is None
-        blob = mm.map_reads_paf(_reads(genome, 10, seed=7))
-        with pytest.raises(ValueError, match="eagerly"):
-            make_mesh_mapper(idx, cp, mp, dp=1, device="cpu", graphs=True, **SMALL)
+        mms = [make_mesh_mapper(idx, cp, mp, dp=1, index_sharded=sharded, device="cpu",
+                                **SMALL) for _ in range(2)]
+        cached, eager = mms
+        assert cached.graphs is True and cached.programs is None  # the CPU: eager
+        cached.programs = RecordingCache("cpu")
+        blobs, stats = [], []
+        for _p in range(3):
+            got = []
+            for m in mms:
+                m.stats = {}
+                got.append(m.map_reads_paf(rl))
+            blobs.append(got)
+            stats.append(dict(cached.stats))
     finally:
         dist.destroy_process_group()
-    assert blob.count(b"\n") >= 5
-    assert mm.stats["eager_stages"] == mm.stats["device_stages"] > 0
-    assert "graph_replays" not in mm.stats and "graph_captures" not in mm.stats
+    want = blobs[0][1]
+    assert want.count(b"\n") >= 8
+    assert all(b == want for pair in blobs for b in pair)
+    assert want.decode().split("\n")[:-1] == oracle_map(idx, rl, cp, mp)
+    assert want == _jax_mesh_blob(genome, rl, sharded)
+    pc = cached.programs
+    assert all(fn.__func__ is MeshMapper._mesh_stage_lite for fn, _i, _s in pc.calls)
+    assert all("stats" not in statics for _f, _i, statics in pc.calls)
+    n_keys = len(pc.programs)
+    assert n_keys >= 2 and len(pc._seen) == n_keys
+    assert sum(st.get("eager_stages", 0) for st in stats) == n_keys
+    assert sum(st.get("graph_captures", 0) for st in stats) == n_keys
+    assert stats[0]["eager_stages"] + stats[0].get("graph_replays", 0) == stats[0]["device_stages"]
+    for st in stats[1:]:
+        assert "eager_stages" not in st and st["graph_replays"] == st["device_stages"]
+    assert "graph_captures" not in stats[2]
+    assert _coll(cached.mesh.stats) == _coll(eager.mesh.stats)
+    axis = "world" if sharded else "dp"
+    assert set(cached.mesh.stats) == {f"all_gather/{axis}"}
+    st = cached.mesh.stats[f"all_gather/{axis}"]
+    assert st["replayed_calls"] == sum(s.get("graph_replays", 0) for s in stats) > 0
+    assert eager.mesh.stats[f"all_gather/{axis}"]["replayed_calls"] == 0
+
+
+def test_gloo_mesh_on_a_card_refuses_graphs(small):
+    """graphs=True on a gloo mesh on a CUDA device raises before anything
+    moves to the device (so here, without a card); graphs=False gets past
+    the check to the upload, which needs the card."""
+    _g, idx, cp, mp = small
+    card = torch.device("cuda", 0)
+    mesh = Mesh(dp=1, ix=2, rank=0, device=card, backend="gloo", groups={})
+    kw = dict(idx=idx, dev_idx=None, cp=cp, mp=mp, mid_occ=10, device=card, mesh=mesh)
+    with pytest.raises(ValueError, match="stages every collective through host memory"):
+        MeshMapper(**kw)
+    with pytest.raises((AssertionError, RuntimeError)) as e:
+        MeshMapper(**kw, graphs=False)
+    assert "host memory" not in str(e.value)
     assert tmapper.Mapper.from_oracle_index(idx, cp, mp, device="cpu").graphs is True
