@@ -67,7 +67,13 @@ Mapper.map_reads_paf:
   * large: a 100 Mbp random genome (seed 7; the native build's time
     and per-stage seconds, runtime/host.last_build_stage_s), 16,384
     reads of 500-1000 bp (seed 9), parity on every 64th
-    (bench.py:475-531), the median of 3 passes.
+    (bench.py:475-531), the median of 3 passes;
+  * bench: bench_torch.py (the port's bench.py) at a cut size, `--reads
+    2048 --longread-n 64 --skip-large`, before the mesh phases (it
+    fails on any parity difference or a section without its kernels'
+    launches): its record must hold every key of such a run and each
+    parity count (128, hifi_k19 128, hpc 128, ont_10pct 256, even_k14
+    128, longread 11, skipprune 128).
 Every mapping phase is byte-identical to the host oracle (default
 parameters unless said otherwise).
 
@@ -150,149 +156,22 @@ import sys
 import time
 from pathlib import Path
 
-
-def _nvidia_smi() -> str:
-    res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return res.stdout.strip().splitlines()[0]
-
-
-def _median(xs):
-    return sorted(xs)[len(xs) // 2]
-
-
-def _time_ms(fn, reps: int = 5, warm: bool = True, inner: int = 1) -> float:
-    """Median of `reps` CUDA-event timings of `inner` back-to-back calls
-    of fn(), divided by `inner` (after one warm-up unless the caller has
-    just run it). With inner > 1 the card queues each launch while the
-    previous one runs, so a kernel's time no longer holds the host's cost
-    of a call."""
-    import torch
-
-    if warm:
-        fn()
-    times = []
-    for _ in range(reps):
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        for _ in range(inner):
-            fn()
-        t1.record()
-        t1.synchronize()
-        times.append(t0.elapsed_time(t1) / inner)
-    return _median(times)
+from minimap2_rs_torch.utils.measure import (
+    CHAIN_OPS_PER_PAIR,
+    KERNEL_INNER,
+    chain_bound,
+    device_ms,
+    median,
+    nvidia_smi,
+    parity,
+    scan_bound,
+    time_ms,
+    valid_rows,
+)
 
 
-# back-to-back launches a kernel timing covers (_time_ms)
-KERNEL_INNER = 10
-
-
-# cycles the card spins before a _device_ms timing (about 30 ms on an
-# H100), long enough for the host to queue every call behind it
-SPIN_CYCLES = 50_000_000
-
-
-def _device_ms(fn, reps: int = 5, inner: int = KERNEL_INNER) -> float:
-    """The card's time for one call of fn(): the median of `reps`
-    CUDA-event timings of `inner` back-to-back calls, each queued behind
-    a spin kernel (torch.cuda._sleep) while the host issues them, so the
-    card runs the calls back to back and the host's cost of a call drops
-    out. Where the host takes longer to issue a call than the card to run
-    it, _time_ms measures the host, and this the card."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SPIN_CYCLES)
-        t0.record()
-        for _ in range(inner):
-            fn()
-        t1.record()
-        t1.synchronize()
-        times.append(t0.elapsed_time(t1) / inner)
-    return _median(times)
-
-
-# The card's peaks (H100 SXM data sheet, dense, at 700 W): float32 outside
-# the tensor cores, and device memory
-PEAK_F32_OPS = 67e12
-PEAK_BYTES = 3.35e12
-# Operations one candidate pair costs in score() of csrc/chain_dp.cu plus
-# the running-best update: the group compare, the two differences,
-# |dr - dq| (compare and subtract), six admissibility compares, two minima
-# (dg, sc), the penalty condition (two), the table index clamp, two
-# int-to-float conversions, three f32 multiplies and two adds, the
-# truncation, the penalty subtract, the add of f[j], and the compare and
-# two selects of the best: 29.
-CHAIN_OPS_PER_PAIR = 29
-# Operations of one position's step of the reference's recurrence (the
-# sequential design in csrc/window_scan.cu) outside the data-dependent
-# rescan: the validity select, the ring write (two), the l compares (two),
-# the minimum compare, its update (three selects), the slot compare and
-# the slot advance (two): 12.
-SCAN_OPS_PER_POSITION = 12
+# the kernel rows' note on library_ms
 LIBRARY_NOTE = "no single PyTorch call computes a sequential chaining DP or a window scan"
-
-
-def _bound(ops: int, nbytes: int):
-    """(bound ms, what bounds it): the larger of the operations over the
-    float32 peak and the bytes over the memory rate."""
-    t_ops = ops / PEAK_F32_OPS * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
-def _valid_rows(grp):
-    """(B,) int64: n_b, one past read b's last valid anchor (grp != -1),
-    the rows the kernels walk."""
-    import torch
-
-    pos = torch.arange(1, grp.shape[1] + 1, device=grp.device, dtype=torch.int64)
-    return torch.where(grp != -1, pos, 0).amax(dim=1)
-
-
-def _chain_bound(args, scal, window: int, n_out: int, tab, skip):
-    """(bound ms, bound_by, pairs) of one chain-DP call: the pairs
-    sum_b sum_{i < n_b} min(i, H), with n_b one past read b's last valid
-    anchor (the rows the kernel walks), or with max_chain_skip only the
-    pairs the walk visits before its break (chain_ops.scanned_pairs on
-    the plain DP's own f and prev), times CHAIN_OPS_PER_PAIR; the bytes of
-    4 (B, A) int32 inputs, n_out outputs and the log2 table."""
-    import torch
-
-    from minimap2_rs_torch.ops import chain_ops
-
-    grp = args[0]
-    B, A = grp.shape
-    H = min(window, A)
-    if skip is None:
-        n = _valid_rows(grp)
-        pairs = int(torch.where(n <= H + 1, n * (n - 1) // 2,
-                                H * (H + 1) // 2 + (n - 1 - H) * H).sum())
-    else:
-        f, prev = chain_ops.chain_dp_batch_ref(*args, scal, window, tab, max_chain_skip=skip)
-        pairs = int(chain_ops.scanned_pairs(*args, f, prev, scal, window, tab, skip).sum())
-    nbytes = (4 + n_out) * B * A * 4 + tab.shape[0] * 4
-    return (*_bound(pairs * CHAIN_OPS_PER_PAIR, nbytes), pairs)
-
-
-def _scan_bound(args):
-    """(bound ms, bound_by) of one window-scan call: the positions
-    sum_b lengths[b] times SCAN_OPS_PER_POSITION; the bytes of ks and ps
-    (int64), l_eff (int32), lengths and emit_final, and the emitted mask
-    (one byte a position)."""
-    ks, ps, l_eff, lengths, emit_final = args
-    B, L = ks.shape
-    positions = int(lengths.long().sum())
-    nbytes = B * L * (8 + 8 + 4 + 1) + B * (4 + 1)
-    return _bound(positions * SCAN_OPS_PER_POSITION, nbytes)
 
 
 def _kernel_vs_plain(entries, tab, aux: bool, window=None, plain_reps: int = 5):
@@ -332,8 +211,8 @@ def _kernel_vs_plain(entries, tab, aux: bool, window=None, plain_reps: int = 5):
     args, scal, win, skip = max((e for e in entries if e[1].bw == bw0),
                                 key=lambda e: e[0][0].numel())
     win = window or win
-    ms = _time_ms(lambda: fn(*args, scal, win, tab, skip), inner=KERNEL_INNER)
-    plain_ms = _time_ms(lambda: ref(*args, scal, win, tab, max_chain_skip=skip),
+    ms = time_ms(lambda: fn(*args, scal, win, tab, skip), inner=KERNEL_INNER)
+    plain_ms = time_ms(lambda: ref(*args, scal, win, tab, max_chain_skip=skip),
                         reps=plain_reps)
     return err, ms, plain_ms, (args, scal, win, skip)
 
@@ -343,7 +222,7 @@ def _scan_vs_plain(entries, max_rows=None):
     plain version on every captured input (entries: [(args, w, k)], each
     cut to its first max_rows rows): torch.equal, then the times (ms,
     CUDA events; the kernels the median of 5, the plain loop one run) on
-    the largest entry: (kernel, its device time (_device_ms), sequential
+    the largest entry: (kernel, its device time (device_ms), sequential
     design, plain, its inputs)."""
     import torch
 
@@ -361,13 +240,13 @@ def _scan_vs_plain(entries, max_rows=None):
                 bad = (got != want).nonzero()[:5].tolist()
                 raise AssertionError(f"{fn.__name__} != plain (L={args[0].shape[1]}) at {bad}")
     args, w, k = max(cut, key=lambda e: e[0][0].numel())
-    ms = _time_ms(lambda: window_scan(*args[:4], w, k, args[4]), inner=KERNEL_INNER)
-    device_ms = _device_ms(lambda: window_scan(*args[:4], w, k, args[4]))
-    prev_ms = _time_ms(lambda: sequential_scan(*args[:4], w, k, args[4]), inner=KERNEL_INNER)
+    ms = time_ms(lambda: window_scan(*args[:4], w, k, args[4]), inner=KERNEL_INNER)
+    card_ms = device_ms(lambda: window_scan(*args[:4], w, k, args[4]))
+    prev_ms = time_ms(lambda: sequential_scan(*args[:4], w, k, args[4]), inner=KERNEL_INNER)
     # the comparison above has just run the plain loop on these inputs
-    plain_ms = _time_ms(lambda: _window_scan_ref(*args[:4], w, k, args[4]), reps=1,
+    plain_ms = time_ms(lambda: _window_scan_ref(*args[:4], w, k, args[4]), reps=1,
                         warm=False)
-    return ms, device_ms, prev_ms, plain_ms, args
+    return ms, card_ms, prev_ms, plain_ms, args
 
 
 def _synthetic_chains(rng, B, A, n_of, r_off=0, q_off=0, step=40, jitter=3):
@@ -601,23 +480,6 @@ def _synthetic_phase(tab_default, want_design, cases):
                       f"({n_win} chained rows)")
 
 
-def _parity(tag, idx, sample, lines, cp, mp):
-    from minimap2_rs_torch.oracle.pipeline import map_reads as oracle_map
-
-    host = oracle_map(idx, sample, cp, mp)
-    names = {n for n, _ in sample}
-    dev = [l for l in lines if l.split("\t", 1)[0] in names]
-    if dev != host:
-        first = next(
-            (f"{d!r} != {h!r}" for d, h in zip(dev, host) if d != h),
-            "line-count mismatch",
-        )
-        raise AssertionError(
-            f"parity failure [{tag}]: {len(dev)} vs {len(host)} lines; {first}"
-        )
-    return len(sample)
-
-
 def _agree(idx, sample, lines, cp, mp) -> int:
     """Reads of `sample` whose lines equal the oracle's under cp."""
     from minimap2_rs_torch.oracle.pipeline import align_read
@@ -803,7 +665,7 @@ def _map_phase(tag, mappers, reads, passes, keys, total):
                 raise AssertionError(f"[{tag}, {label}] the path never launched {key}")
         _program_check(f"{tag}, {label}", m, run["summed"])
         print(f"{tag} ({label}) pass times (s): {[round(t, 4) for t in run['times']]}, "
-              f"median {_median(run['times']):.4f}; stages over the timed passes "
+              f"median {median(run['times']):.4f}; stages over the timed passes "
               f"{json.dumps(run['summed'])}; {_programs_line(m)}")
         print(f"{tag} ({label}) stats (last pass): {json.dumps(run['stats'], sort_keys=True)}")
         print(f"{tag} ({label}) kernel launches over {passes} timed passes: "
@@ -812,7 +674,7 @@ def _map_phase(tag, mappers, reads, passes, keys, total):
         total[k] = total.get(k, 0) + v
     if len(labels) > 1:
         print(f"{tag}: {' == '.join(labels)}, {len(lines)} PAF lines byte-identical; median "
-              f"pass " + ", ".join(f"{x} {_median(runs[x]['times']):.4f} s" for x in labels)
+              f"pass " + ", ".join(f"{x} {median(runs[x]['times']):.4f} s" for x in labels)
               + "; first pass " + ", ".join(f"{x} {runs[x]['warm'][0]:.4f} s" for x in labels)
               + "; last pass " + json.dumps({k: [runs[x]["stats"].get(k) for x in labels]
                                              for k in HOST_STATS}))
@@ -859,7 +721,7 @@ def _forced_phases(cp, mp, total) -> None:
         if st.get("wide_reads", 0) == 0 or (seed == 42 and st.get("tier2_reads", 0) < 48):
             raise AssertionError(f"[{tag}] tier2_reads {st.get('tier2_reads')}, "
                                  f"wide_reads {st.get('wide_reads')}")
-        n_par = _parity(tag, idx, rl, lines, cp, mp)
+        n_par = parity(tag, idx, rl, lines, cp, mp)
         print(f"{tag} parity vs oracle: {n_par} reads byte-identical; tier2_reads "
               f"{st.get('tier2_reads')}, wide_reads {st.get('wide_reads')}")
 
@@ -1029,7 +891,7 @@ def _mesh_dp_phase(idx, cp, mp, reads, lines, mapper, mapper_runs: dict, trace_d
                   for x in ("captured", "eager")})
     print(f"{tag}: {len(mlines)} PAF lines byte-identical to the single-device Mapper's; "
           f"median pass (s, same call) "
-          + json.dumps({k: _median(r["times"]) for k, r in paths.items()}))
+          + json.dumps({k: median(r["times"]) for k, r in paths.items()}))
     keys = ("submit", "encode", "upload", "stage_issue", "d2h_issue", "d2h+wait", "post")
     print(f"{tag} last pass of each: " + json.dumps(
         {k: {x: r["stats"].get(k) for x, r in paths.items()} for k in keys}))
@@ -1135,7 +997,7 @@ def _mesh_sharded_phase(cp, mp, store_dir: Path):
     if any(r["blob"] != res[0]["blob"] for r in res):
         raise AssertionError("[mesh sharded] the ranks' PAF bytes differ")
     lines = res[0]["blob"].decode().split("\n")[:-1]
-    n_par = _parity("mesh sharded", idx10, short[::16] + long_, lines, cp, mp)
+    n_par = parity("mesh sharded", idx10, short[::16] + long_, lines, cp, mp)
     want_stats = (int(idx10.keys.shape[0]), int(idx10.positions.shape[0]))
     want_mid = idx10.calc_mid_occ(2e-4)
     captured, launches = [], {}
@@ -1154,7 +1016,7 @@ def _mesh_sharded_phase(cp, mp, store_dir: Path):
         coll = {kk: {"calls_per_pass": v["calls"] / n, "bytes_sent_per_pass": v["bytes_sent"] / n,
                      "seconds_per_pass": v["seconds"] / n, "transport": v["transport"]}
                 for kk, v in r["collectives"].items()}
-        print(f"mesh sharded rank {rank}: median pass {_median(r['times']):.4f} s (passes "
+        print(f"mesh sharded rank {rank}: median pass {median(r['times']):.4f} s (passes "
               f"{[round(t, 4) for t in r['times']]}); dm_entry {r['dm_entry']}; stats "
               f"{tuple(r['stats_allreduce'])} and mid_occ {r['mid_occ'][2e-4]} equal the "
               f"oracle's; launches over {n} passes {r['launches']}")
@@ -1171,6 +1033,37 @@ def _mesh_sharded_phase(cp, mp, store_dir: Path):
     print(f"mesh sharded parity vs oracle: {n_par} reads byte-identical, the same bytes on "
           f"both ranks ({len(lines)} PAF lines); launches over both ranks {launches}")
     return captured, launches
+
+
+# the bench phase: bench_torch.py at a cut size, and the parity counts it
+# must report there (every 16th of 2,048 reads; every 6th of 64 long ones)
+BENCH_ARGV = ["--reads", "2048", "--longread-n", "64", "--skip-large"]
+BENCH_PARITY = {"default": 128, "hifi_k19": 128, "hpc": 128, "ont_10pct": 256,
+                "even_k14": 128, "longread": 11, "skipprune": 128}
+
+
+def _bench_phase() -> None:
+    """bench_torch.main at BENCH_ARGV on the card (which itself fails on a
+    parity difference, a section without its kernels' launches or a
+    chain_bound_share over 1.05): its record must hold every key of such
+    a run and the parity counts BENCH_PARITY; printed on one line with
+    its seconds."""
+    import bench_torch
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rec = bench_torch.main(BENCH_ARGV)
+    secs = time.perf_counter() - t0
+    keys = bench_torch.flat_keys(rec)
+    want = bench_torch.record_keys(skip_large=True)
+    if keys != want:
+        raise AssertionError(f"[bench] record keys: missing {sorted(want - keys)}, "
+                             f"unexpected {sorted(keys - want)}")
+    got = {t: rec[f"parity_{t}"] for t in BENCH_PARITY}
+    if got != BENCH_PARITY:
+        raise AssertionError(f"[bench] parity counts {got} != {BENCH_PARITY}")
+    print(f"bench phase ({secs:.1f} s, bench_torch.py {' '.join(BENCH_ARGV)}): "
+          f"{json.dumps(rec)}")
 
 
 def main() -> int:
@@ -1193,7 +1086,7 @@ def main() -> int:
     from minimap2_rs_torch.utils.seqsim import random_genome, simulate_reads
 
     t_start = time.perf_counter()
-    card = _nvidia_smi()
+    card = nvidia_smi()
     print(card)
     nvcc = subprocess.run([kbuild._nvcc(), "--version"], capture_output=True,
                           text=True).stdout.strip().splitlines()[-1]
@@ -1259,8 +1152,8 @@ def main() -> int:
     times, stats = runs["captured"]["times"], runs["captured"]["stats"]
     mapped = {l.split("\t", 1)[0] for l in lines}
     aligned_bp = sum(len(s) for n, s in reads if n in mapped)
-    dt = _median(times)
-    dt_eager = _median(runs["eager"]["times"])
+    dt = median(times)
+    dt_eager = median(runs["eager"]["times"])
     print(f"lite headline median pass {dt:.4f} s captured, {dt_eager:.4f} s eager; aligned "
           f"{aligned_bp / dt:.1f} bp/s captured, {aligned_bp / dt_eager:.1f} eager, "
           f"{len(lines)} PAF lines")
@@ -1268,14 +1161,14 @@ def main() -> int:
         if run["stats"].get("host_reads", 0) >= 0.01 * len(reads):
             raise AssertionError(f"host fallback on {run['stats'].get('host_reads')} reads "
                                  "(>= 1%)")
-    n_par = _parity("lite headline", idx, reads[::16], lines, cp, mp)
+    n_par = parity("lite headline", idx, reads[::16], lines, cp, mp)
     print(f"lite headline parity vs oracle: {n_par} reads byte-identical")
     profile("lite headline", lite)
 
     # ---- lite long reads: 64 reads of 5-20 kb --------------------------
     llines, _r, cap_llong = _map_phase("lite long-read", lite, lreads, 3,
                                        ["chain_dp_aux/lane"], total)
-    n_par = _parity("lite longread", idx, lreads, llines, cp, mp)
+    n_par = parity("lite longread", idx, lreads, llines, cp, mp)
     print(f"lite long-read parity vs oracle: {n_par} reads byte-identical")
     profile("lite long-read", lite)
 
@@ -1290,9 +1183,9 @@ def main() -> int:
     n_s2 = _count_where(glines, lambda l: _s2(l) > 0)
     mapped = {l.split("\t", 1)[0] for l in glines}
     aligned_bp = sum(len(s) for n, s in reads if n in mapped)
-    dt = _median(gruns["captured"]["times"])
+    dt = median(gruns["captured"]["times"])
     print(f"general headline median pass {dt:.4f} s captured, "
-          f"{_median(gruns['eager']['times']):.4f} s eager; aligned {aligned_bp / dt:.1f} "
+          f"{median(gruns['eager']['times']):.4f} s eager; aligned {aligned_bp / dt:.1f} "
           f"bp/s captured, {len(glines)} PAF lines, {n_sec} tp:A:S lines, {n_s2} lines "
           f"with s2 > 0")
     if n_sec == 0:
@@ -1305,7 +1198,7 @@ def main() -> int:
         raise AssertionError("the general headline queued no rescue re-chain")
     sample = reads[::16]
     with _OracleRescues(cp_gen) as resc_exact:
-        n_par = _parity("general headline", idx, sample, glines, cp_exact, mp)
+        n_par = parity("general headline", idx, sample, glines, cp_exact, mp)
     print(f"general headline parity vs exact-window oracle: {n_par} reads byte-identical")
     with _OracleRescues(cp_gen) as resc_default:
         n_agree = _agree(idx, sample, glines, cp_gen, mp)
@@ -1321,7 +1214,7 @@ def main() -> int:
     # ---- general long reads ----------------------------------------------
     gllines, _r, cap_glong = _map_phase("general long-read", general, lreads, 3,
                                         ["chain_dp/lane"], total)
-    n_par = _parity("general longread", idx, lreads, gllines, cp_exact, mp)
+    n_par = parity("general longread", idx, lreads, gllines, cp_exact, mp)
     print(f"general long-read parity vs exact-window oracle: {n_par} reads byte-identical")
     print(f"general long reads equal to the default oracle: "
           f"{_agree(idx, lreads, gllines, cp_gen, mp)} of {n_par} reads")
@@ -1331,7 +1224,7 @@ def main() -> int:
     r_ont = [(n, s) for n, s, *_ in simulate_reads(genome, 256, read_len=(1000, 2000),
                                                    error_rate=0.10, seed=19)]
     l_ont, _r, _c = _map_phase("ont_10pct", mapper, r_ont, 1, ["chain_dp_aux/static"], total)
-    n_par = _parity("ont_10pct", idx, r_ont, l_ont, cp, mp)
+    n_par = parity("ont_10pct", idx, r_ont, l_ont, cp, mp)
     print(f"ont_10pct parity vs oracle: {n_par} reads byte-identical, {len(l_ont)} PAF lines")
 
     # ---- the 4x tier and the lazy wide pass, forced ------------------
@@ -1349,7 +1242,7 @@ def main() -> int:
           f"{idx19.keys.shape[0]} keys, dm_entry={m19.dev_idx.dm_entry}")
     l19, _r, cap_19 = _map_phase("hifi_k19", m19, r19, 1, ["chain_dp_aux/static"],
                                      total)
-    n_par = _parity("hifi_k19", idx19, r19, l19, cp19, mp)
+    n_par = parity("hifi_k19", idx19, r19, l19, cp19, mp)
     print(f"hifi_k19 parity vs oracle: {n_par} reads byte-identical, {len(l19)} PAF lines")
 
     # ---- even_k14: the exact-scan sketch through the window scan -------
@@ -1365,7 +1258,7 @@ def main() -> int:
         "even_k14", m14, r14, 1,
         ["window_scan/short", "window_scan/long", "chain_dp_aux/static",
          "chain_dp_aux/lane"], total)
-    n_par = _parity("even_k14", idx14, r14, l14, cp14, mp)
+    n_par = parity("even_k14", idx14, r14, l14, cp14, mp)
     print(f"even_k14 parity vs oracle: {n_par} reads byte-identical, {len(l14)} PAF lines")
 
     # ---- hpc: an HPC index (queries stay non-HPC, seeds.rs:7-11) --------
@@ -1375,7 +1268,7 @@ def main() -> int:
     r_hpc = [(n, s) for n, s, *_ in simulate_reads(g19, 128, read_len=(500, 1000), seed=17)]
     print(f"hpc set-up {time.perf_counter() - t0:.1f} s: {idx_hpc.keys.shape[0]} keys")
     l_hpc, _r, _c = _map_phase("hpc", m_hpc, r_hpc, 1, ["chain_dp_aux/static"], total)
-    n_par = _parity("hpc", idx_hpc, r_hpc, l_hpc, cp, mp)
+    n_par = parity("hpc", idx_hpc, r_hpc, l_hpc, cp, mp)
     print(f"hpc parity vs oracle: {n_par} reads byte-identical, {len(l_hpc)} PAF lines")
 
     # ---- skipprune: the pruned kernel instances, both paths -------------
@@ -1391,8 +1284,8 @@ def main() -> int:
                                             ["chain_dp_prune/static"], total)
     finally:
         del os.environ["MM2T_SKIP_PRUNE"]
-    n_par = _parity("skipprune lite", idx, r_sp, l_sp, cp, mp)
-    n_gpar = _parity("skipprune general", idx, r_sp, gl_sp, cp_gen, mp)
+    n_par = parity("skipprune lite", idx, r_sp, l_sp, cp, mp)
+    n_gpar = parity("skipprune general", idx, r_sp, gl_sp, cp_gen, mp)
     print(f"skipprune parity vs the default oracle: lite {n_par}, general {n_gpar} reads "
           f"byte-identical ({len(l_sp)} and {len(gl_sp)} PAF lines)")
 
@@ -1415,10 +1308,10 @@ def main() -> int:
     blines, bruns, _c = _map_phase("large", bmapper, brl, 3, ["chain_dp_aux/static"], total)
     bnames = {l.split("\t", 1)[0] for l in blines}
     b_bp = sum(len(s) for n, s in brl if n in bnames)
-    dt = _median(bruns["captured"]["times"])
+    dt = median(bruns["captured"]["times"])
     print(f"large median pass {dt:.4f} s, aligned {b_bp / dt:.1f} bp/s, {len(blines)} PAF "
           f"lines")
-    n_par = _parity("large", idx_big, brl[::64], blines, cp, mp)
+    n_par = parity("large", idx_big, brl[::64], blines, cp, mp)
     print(f"large parity vs oracle: {n_par} reads byte-identical (every 64th)")
     del bmapper, idx_big, big, brl, blines
 
@@ -1494,6 +1387,9 @@ def main() -> int:
         print(f"extension {fn.__name__}: 64 pairs, card == CPU; first scores "
               f"{got[0][:4].tolist()}")
 
+    # ---- bench_torch.py at a cut size (before any process group exists) --
+    _bench_phase()
+
     # ---- the multi-GPU mapper: a 1-rank NCCL mesh, the CLI, 2 gloo ranks --
     cap_mesh_dp, n_mesh_dp = _mesh_dp_phase(idx, cp, mp, reads, lines, mapper, runs,
                                             trace_dir)
@@ -1553,15 +1449,15 @@ def main() -> int:
         err, ms, plain_ms, (args, scal, win, skip) = _kernel_vs_plain(
             entries, tab, aux, window, plain_reps)
         timed = tuple(args[0].shape)
-        bound_ms, bound_by, pairs = _chain_bound(args, scal, win, 4 if aux else 2, tab, skip)
+        bound_ms, bound_by, pairs = chain_bound(args, scal, win, 4 if aux else 2, tab, skip)
         n_launch = counts.get(held, 0)
         design = kchain.design(timed[1], win, aux, skip)
-        n_rows = int(_valid_rows(args[0]).max())
+        n_rows = int(valid_rows(args[0]).max())
         extra = {"design": design, "rows": n_rows,
                  "us_per_row": ms * 1e3 / n_rows if n_rows else None}
         if design != "template":
             # the previous design on the same inputs, in the same call
-            extra["prev_design_ms"] = _time_ms(
+            extra["prev_design_ms"] = time_ms(
                 lambda: kchain.template_batch(aux, *args, scal, win, tab, skip),
                 inner=KERNEL_INNER)
         if design == "lane":
@@ -1571,7 +1467,7 @@ def main() -> int:
         elif design == "smem":
             extra["smem_bytes"] = kchain.prune_block_bytes(timed[1], aux)
             fn = kchain.chain_dp_aux_batch if aux else kchain.chain_dp_batch
-            extra["device_ms"] = _device_ms(lambda: fn(*args, scal, win, tab, skip))
+            extra["device_ms"] = device_ms(lambda: fn(*args, scal, win, tab, skip))
         print(f"{name}: (B, A), bw, window = {shapes}, all equal; timed at "
               f"{timed}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
               f"{bound_ms:.6f} ms ({bound_by}; {pairs} pairs x {CHAIN_OPS_PER_PAIR} ops)"
@@ -1593,12 +1489,12 @@ def main() -> int:
     for cls, max_rows in (("short", None), ("long", 8)):
         key = f"window_scan/{cls}"
         entries = _launched(cap_14, key)
-        ms, device_ms, prev_ms, plain_ms, args = _scan_vs_plain(entries, max_rows)
+        ms, card_ms, prev_ms, plain_ms, args = _scan_vs_plain(entries, max_rows)
         timed = tuple(args[0].shape)
-        bound_ms, bound_by = _scan_bound(args)
+        bound_ms, bound_by = scan_bound(args)
         shapes = [(tuple(a[0][:max_rows].shape), w, k) for a, w, k in entries]
         print(f"window_scan ({cls}): (B, L), w, k = {shapes}, all equal (both designs); "
-              f"timed at {timed}: kernel {ms:.4f} ms (device time {device_ms:.4f} ms), "
+              f"timed at {timed}: kernel {ms:.4f} ms (device time {card_ms:.4f} ms), "
               f"prev_design_ms (sequential) {prev_ms:.4f}, plain {plain_ms:.4f} ms, bound "
               f"{bound_ms:.6f} ms ({bound_by}); launches x (ms - bound) = "
               f"{total.get(key, 0) * (ms - bound_ms):.4f} ms")
@@ -1609,7 +1505,7 @@ def main() -> int:
             launches=total.get(key, 0), max_abs_err=0, ms=ms, plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
             library_note=LIBRARY_NOTE, design="tile", prev_design_ms=prev_ms,
-            device_ms=device_ms,
+            device_ms=card_ms,
             shape=cls, timed_at=timed, on_main_path=total.get(key, 0) > 0,
         ))
 

@@ -7,7 +7,7 @@ kLaneThreads = 256, 512 and 1024 (one nvcc each, in parallel, into
 build/lane_ab/), then times the two lane entry points of each on the
 same inputs, in turns (256, 512, 1024, then 1024, 512, 256; CUDA events
 around 10 back-to-back launches, median of 5 each), beside the
-warp-per-read template and the bound (chip_smoke._chain_bound).
+warp-per-read template and the bound (utils/measure.chain_bound).
 Inputs, made from a seed: B = 128 reads of
 A = 4480 anchor slots all valid; the same with every other read empty;
 B = 16 at A = 11,904. Each is run at H = 1024 and 5000 (aux) and 5000
@@ -23,7 +23,7 @@ import subprocess
 import sys
 from pathlib import Path
 
-import chip_smoke as cs
+from minimap2_rs_torch.utils import measure
 
 BLOCKS = (256, 512, 1024)
 
@@ -127,7 +127,7 @@ def main() -> int:
     from minimap2_rs_torch.kernels import chain_dp as kchain
     from minimap2_rs_torch.ops.chain_ops import chain_scalars_from_params, log2_table
 
-    print(cs._nvidia_smi())
+    print(measure.nvidia_smi())
     out = Path(__file__).resolve().parent / "build" / "lane_ab"
     out.mkdir(parents=True, exist_ok=True)
     from minimap2_rs_torch.kernels import build as kbuild
@@ -155,13 +155,13 @@ def main() -> int:
                     torch.cuda.synchronize()
                     if not all(torch.equal(g, w) for g, w in zip(got, ref)):
                         raise AssertionError(f"{name}, T={T}, aux={aux}: != template")
-                    res.setdefault(T, []).append(cs._time_ms(
+                    res.setdefault(T, []).append(measure.time_ms(
                         lambda: call_entry(libs[T], "lane", aux, args, scal, H, tab),
-                        inner=cs.KERNEL_INNER))
-            tmpl = cs._time_ms(lambda: kchain.template_batch(aux, *args, scal, H, tab),
-                               inner=cs.KERNEL_INNER)
-            bound_ms, bound_by, _pairs = cs._chain_bound(args, scal, H, 4 if aux else 2,
-                                                         tab, None)
+                        inner=measure.KERNEL_INNER))
+            tmpl = measure.time_ms(lambda: kchain.template_batch(aux, *args, scal, H, tab),
+                                   inner=measure.KERNEL_INNER)
+            bound_ms, bound_by, _pairs = measure.chain_bound(args, scal, H, 4 if aux else 2,
+                                                             tab, None)
             print(f"{name} aux={aux} H={min(H, A)}: "
                   + ", ".join(f"T={T} {v[0]:.4f}/{v[1]:.4f} ms" for T, v in res.items())
                   + f"; template {tmpl:.4f} ms; bound {bound_ms:.4f} ms ({bound_by})",

@@ -460,6 +460,16 @@ class Mapper:
         submitting thread's stats dict."""
         return self._run_stage(
             _fused_map_stage_lite, (wire_arr, lengths, nex), stats,
+            **self._lite_statics(scalars, wide=wide, M=M, A=A, window=window, wire=wire,
+                                 max_chain_skip=max_chain_skip),
+        )
+
+    def _lite_statics(self, scalars: ChainScalars, *, wide: bool, M: int, A: int,
+                      window: int, wire: str, max_chain_skip: int | None) -> dict:
+        """Every keyword argument of _fused_map_stage_lite for one batch
+        shape and band: the statics of its program (bench_torch.py times
+        the same call)."""
+        return dict(
             dev_idx=self.dev_idx, scalars=scalars, scalars_wide=self._scalars_wide,
             mid_occ=self.mid_occ, tlens=self._tlens_dev,
             rmq_rescue_size=self.cp.rmq_rescue_size,

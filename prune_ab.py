@@ -19,7 +19,7 @@ slots, so rows walk their whole window). On each it times both variants'
 pruned entry points in turns (as built, with, with, as built; CUDA
 events around 10 back-to-back launches into preallocated outputs, median
 of 5 each) beside the template's pruned instance and the bound
-(chip_smoke._chain_bound); every output must be torch.equal to the
+(utils/measure.chain_bound); every output must be torch.equal to the
 plain version. Needs one CUDA GPU; exits non-zero otherwise or on any
 mismatch.
 """
@@ -31,6 +31,7 @@ import sys
 from pathlib import Path
 
 import chip_smoke as cs
+from minimap2_rs_torch.utils import measure
 from lane_block_ab import build_variants, call_entry
 
 AS_BUILT = "as built"
@@ -153,7 +154,7 @@ def main() -> int:
     from minimap2_rs_torch.kernels import chain_dp as kchain
     from minimap2_rs_torch.ops import chain_ops
 
-    print(cs._nvidia_smi())
+    print(measure.nvidia_smi())
     out = Path(__file__).resolve().parent / "build" / "prune_ab"
     out.mkdir(parents=True, exist_ok=True)
     libs = build_variants(out, _sources(), "prune_smem")
@@ -172,12 +173,12 @@ def main() -> int:
                 torch.cuda.synchronize()
                 if not all(torch.equal(g, w) for g, w in zip(got, want)):
                     raise AssertionError(f"{name} aux={aux}, {v}: != plain")
-                res.setdefault(v, []).append(cs._time_ms(run, inner=cs.KERNEL_INNER))
-        tmpl = cs._time_ms(lambda: kchain.template_batch(aux, *args, scal, win, tab, skip),
-                           inner=cs.KERNEL_INNER)
-        bound_ms, bound_by, pairs = cs._chain_bound(args, scal, win, 4 if aux else 2, tab,
-                                                    skip)
-        rows = int(cs._valid_rows(args[0]).max())
+                res.setdefault(v, []).append(measure.time_ms(run, inner=measure.KERNEL_INNER))
+        tmpl = measure.time_ms(lambda: kchain.template_batch(aux, *args, scal, win, tab, skip),
+                               inner=measure.KERNEL_INNER)
+        bound_ms, bound_by, pairs = measure.chain_bound(args, scal, win, 4 if aux else 2, tab,
+                                                        skip)
+        rows = int(measure.valid_rows(args[0]).max())
         print(f"{name} aux={aux} (B, A)={tuple(args[0].shape)} H={min(win, args[0].shape[1])} "
               f"rows={rows} pairs walked={pairs}: "
               + "; ".join(f"{v} {t[0]:.4f}/{t[1]:.4f} ms" for v, t in res.items())

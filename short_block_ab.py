@@ -20,7 +20,7 @@ captured input, at its own window and at window 128, it times every
 variant's short-read entry point in turns (in order, then in reverse;
 CUDA events around 10 back-to-back launches into preallocated outputs,
 median of 5 each) beside
-the warp-per-read template and the bound (chip_smoke._chain_bound);
+the warp-per-read template and the bound (utils/measure.chain_bound);
 every output but the cut's must be torch.equal to the plain version.
 Needs one CUDA GPU; exits non-zero otherwise or on any mismatch.
 """
@@ -30,7 +30,7 @@ from __future__ import annotations
 import sys
 from pathlib import Path
 
-import chip_smoke as cs
+from minimap2_rs_torch.utils import measure
 from lane_block_ab import build_variants, call_entry, with_constants
 
 AS_BUILT = "32 threads, 4 slots a group (as built)"
@@ -89,7 +89,7 @@ def main() -> int:
     from minimap2_rs_torch.ops import chain_ops
     from minimap2_rs_torch.utils.seqsim import random_genome, simulate_reads
 
-    print(cs._nvidia_smi())
+    print(measure.nvidia_smi())
     out = Path(__file__).resolve().parent / "build" / "short_ab"
     out.mkdir(parents=True, exist_ok=True)
     libs = build_variants(out, _sources(), "short")
@@ -118,12 +118,13 @@ def main() -> int:
                     if name != WALK_ONLY and not all(
                             torch.equal(g, w) for g, w in zip(got, want)):
                         raise AssertionError(f"{key} bw={bw} H={win}, {name}: != plain")
-                    res.setdefault(name, []).append(cs._time_ms(run, inner=cs.KERNEL_INNER))
-            tmpl = cs._time_ms(lambda: kchain.template_batch(aux, *args, scal, win, tab),
-                               inner=cs.KERNEL_INNER)
-            bound_ms, bound_by, _pairs = cs._chain_bound(args, scal, win, 4 if aux else 2,
-                                                         tab, None)
-            rows = int(cs._valid_rows(args[0]).max())
+                    res.setdefault(name, []).append(
+                        measure.time_ms(run, inner=measure.KERNEL_INNER))
+            tmpl = measure.time_ms(lambda: kchain.template_batch(aux, *args, scal, win, tab),
+                                   inner=measure.KERNEL_INNER)
+            bound_ms, bound_by, _pairs = measure.chain_bound(args, scal, win, 4 if aux else 2,
+                                                             tab, None)
+            rows = int(measure.valid_rows(args[0]).max())
             print(f"{key} bw={bw} (B, A)={tuple(args[0].shape)} H={min(win, A)} "
                   f"rows={rows}: "
                   + "; ".join(f"{n} {v[0]:.4f}/{v[1]:.4f} ms" for n, v in res.items())

@@ -30,11 +30,11 @@ def test_port_imports_no_jax():
               "ops.index_build", "ops.extend_ops", "kernels.window_scan", "config",
               "io.fasta", "oracle.pipeline", "runtime.host", "utils.profiling",
               "parallel.mesh", "parallel.sharded_index", "parallel.pipeline",
-              "parallel.ranks", "models.mesh_mapper"):
+              "parallel.ranks", "models.mesh_mapper", "utils.measure"):
         assert f"minimap2_rs_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
-        f"for m in {mods!r}: importlib.import_module(m)\n"
+        f"for m in {mods + ['bench_torch']!r}: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'jaxlib', 'minimap2_rs_tpu')))\n"
         "assert not bad, bad\n"
@@ -47,7 +47,7 @@ def test_port_imports_no_jax():
 
 def _port_sources():
     return sorted((ROOT / "minimap2_rs_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "dryrun_multigpu_torch.py"]
+        ROOT / "chip_smoke.py", ROOT / "dryrun_multigpu_torch.py", ROOT / "bench_torch.py"]
 
 
 def _imported(tree: ast.AST):
@@ -62,9 +62,9 @@ def _imported(tree: ast.AST):
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_source_never_imports_jax_package(path):
-    """No import statement of the port, of chip_smoke.py or of
-    dryrun_multigpu_torch.py, at module level or inside a function, names
-    minimap2_rs_tpu or jax."""
+    """No import statement of the port, of chip_smoke.py, of
+    dryrun_multigpu_torch.py or of bench_torch.py, at module level or
+    inside a function, names minimap2_rs_tpu or jax."""
     names = list(_imported(ast.parse(path.read_text(), str(path))))
     bad = [n for n in names if n.split(".")[0] in ("minimap2_rs_tpu", "jax", "jaxlib")]
     assert not bad, bad
