@@ -245,12 +245,21 @@ def _lines(blob: bytes) -> list:
     return blob.decode().split("\n")[:-1] if blob else []
 
 
+def lite_statics(mapper: Mapper, bucket: int, wire: str) -> dict:
+    """The lite program's statics for a call at `bucket` on `wire`, at
+    the lite window min(window, LITE_WINDOW_CAP), as
+    Mapper._submit_groups issues it (Mapper._lite_statics)."""
+    M, A, window, _B = mapper._shapes_for(bucket, 1)
+    return mapper._lite_statics(mapper._scalars, wide=mapper._dual_band(A), M=M, A=A,
+                                window=min(window, LITE_WINDOW_CAP), wire=wire,
+                                max_chain_skip=_chain_skip_cfg(mapper.cp))
+
+
 def lite_batch(mapper: Mapper, reads, bucket: int):
     """One padded batch of the headline's shape for `bucket`: (host
     inputs (wire, lengths, nex) as tensors, the lite program's statics),
     encoded as Mapper._submit_groups encodes it."""
-    M, A, window, B_max = mapper._shapes_for(bucket, 1)
-    window = min(window, LITE_WINDOW_CAP)
+    B_max = mapper._shapes_for(bucket, 1)[3]
     seqs = [s for _, s in reads if len(s) <= bucket][:B_max]
     # the padded rows of the bucket's first call, as _submit_groups pads it
     B = mapper._quantize_b(len(seqs), B_max)
@@ -259,10 +268,8 @@ def lite_batch(mapper: Mapper, reads, bucket: int):
     wire_arr, nex, wire = mapper._encode(seqs, B, bucket)
     if nex is None:
         nex = np.zeros(1, dtype=np.int32)
-    statics = mapper._lite_statics(mapper._scalars, wide=mapper._dual_band(A), M=M, A=A,
-                                   window=window, wire=wire,
-                                   max_chain_skip=_chain_skip_cfg(mapper.cp))
-    return tuple(map(torch.from_numpy, (wire_arr, lengths, nex))), statics
+    return (tuple(map(torch.from_numpy, (wire_arr, lengths, nex))),
+            lite_statics(mapper, bucket, wire))
 
 
 def stage_prefixes(statics: dict) -> list:

@@ -73,7 +73,18 @@ Mapper.map_reads_paf:
     fails on any parity difference or a section without its kernels'
     launches): its record must hold every key of such a run and each
     parity count (128, hifi_k19 128, hpc 128, ont_10pct 256, even_k14
-    128, longread 11, skipprune 128).
+    128, longread 11, skipprune 128);
+  * prof: the four measuring scripts at a cut size, after the bench
+    phase and before the mesh phases (each fails on other bytes, a
+    missing kernel launch or a timed stage that did not replay): the
+    batch-size sweep (prof_pipeline_torch.py 2048 1024 on 4,096 reads,
+    byte-equal PAF), the long-read report (prof_longread_torch.py 64,
+    the lane kernel launched), the stage split at the 8192 and 24576
+    buckets of 64 long reads (prof_longread_stages_torch.py, the lane
+    kernel launched at each), and the scaling record twice
+    (scaling_bench_torch.py --dp 1: a 1-rank NCCL group in a spawned
+    rank, captured, its programs replayed; --dp 2 --share-device
+    --reads 512: 2 gloo ranks on the card, bytes equal to dp = 1).
 Every mapping phase is byte-identical to the host oracle (default
 parameters unless said otherwise).
 
@@ -1066,6 +1077,57 @@ def _bench_phase() -> None:
           f"{json.dumps(rec)}")
 
 
+# the prof phase: each measuring script's main at a cut size, in order
+PROF_RUNS = (
+    ("pipeline", "prof_pipeline_torch", ["2048", "1024"], {"reads": 4096}),
+    ("longread", "prof_longread_torch", ["64"], None),
+    ("stages", "prof_longread_stages_torch", [], {"reads": 64}),
+    ("scaling nccl", "scaling_bench_torch", ["--dp", "1"], None),
+    ("scaling shared card", "scaling_bench_torch",
+     ["--dp", "2", "--share-device", "--reads", "512"], None),
+)
+
+
+def _prof_phase() -> None:
+    """PROF_RUNS on the card. Each script fails by itself on other PAF
+    bytes between its runs, a section without its kernel's launches or a
+    timed stage that did not replay; here besides: both batch sizes
+    swept, the lane kernel in every long-read and stage record, the NCCL
+    scaling run's captured programs replayed in its program-only rounds,
+    and the shared-card run on gloo with no programs. Prints what each
+    script printed and then its record on a line of its own."""
+    import importlib
+
+    t_all = time.perf_counter()
+    for tag, name, argv, sizes in PROF_RUNS:
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rec = importlib.import_module(name).main(argv, sizes=sizes)
+        secs = time.perf_counter() - t0
+        for line in out.getvalue().splitlines()[:-1]:  # the last is the record
+            print(f"  {line}")
+        lane = "chain_dp_aux/lane"
+        if tag == "pipeline":
+            ok = [s["batch_size"] for s in rec["sizes"]] == [2048, 1024]
+        elif tag == "longread":
+            ok = rec["launches"].get(lane, 0) > 0
+        elif tag == "stages":
+            calls = [c for b in rec["buckets"] for c in b["calls"]]
+            ok = ([b["bucket"] for b in rec["buckets"]] == [8192, 24576]
+                  and all(c["launches"].get(lane) for c in calls))
+        elif tag == "scaling nccl":
+            ok = (rec["transport"] == "nccl" and rec["program_only_dp1_s"] > 0
+                  and all(r > 0 for r in rec["program_rounds_s"]["dp1"]))
+        else:
+            ok = (rec["transport"] == "gloo-shared-device"
+                  and rec["program_only_dp2_s"] is None and rec["t_dp2_s"] > 0)
+        if not ok:
+            raise AssertionError(f"[prof {tag}] record: {json.dumps(rec)}")
+        print(f"prof phase {tag} ({secs:.1f} s, {name}.py {' '.join(argv)}): {json.dumps(rec)}")
+    print(f"prof phase {time.perf_counter() - t_all:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -1389,6 +1451,8 @@ def main() -> int:
 
     # ---- bench_torch.py at a cut size (before any process group exists) --
     _bench_phase()
+    # ---- the measuring scripts at a cut size (before any process group) --
+    _prof_phase()
 
     # ---- the multi-GPU mapper: a 1-rank NCCL mesh, the CLI, 2 gloo ranks --
     cap_mesh_dp, n_mesh_dp = _mesh_dp_phase(idx, cp, mp, reads, lines, mapper, runs,

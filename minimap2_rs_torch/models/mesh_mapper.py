@@ -58,6 +58,10 @@ class MeshMapper(Mapper):
 
     mesh: Mesh = None
     index_sharded: bool = False
+    # the collective bytes of one sharded call, by (reads, bucket) of the
+    # whole batch (parallel/pipeline.sharded_payload_bytes; the JAX
+    # MeshMapper's stats["ici_payload"])
+    payload_per_call: dict = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
         if self.mesh is None:
@@ -146,6 +150,8 @@ class MeshMapper(Mapper):
             payload = sharded_payload_bytes(statics, lengths.shape[0] * n_ix, n_ix)
             _add_stats(stats, "collective_payload_bytes",
                        payload["total_collective_bytes_per_rank"])
+            shape = (lengths.shape[0] * self.mesh.size("world"), 2 * wire_arr.shape[1])
+            self.payload_per_call[str(shape)] = payload
         return self._run_stage(self._mesh_stage_lite, (wire_arr, lengths, nex), stats,
                                scalars=scalars, **statics)
 

@@ -2,22 +2,22 @@
 
 `spawn(task, world_size, *args, store_dir=..., device=..., task_kw=...)`
 starts world_size processes with the spawn start method; rank r joins
-the group through a FileStore in store_dir, pins torch to one thread,
-runs task(rank, world_size, *args, device=..., share_device=...,
-**task_kw) and sends back what it returns (numpy arrays, bytes and plain
-Python values: never tensors). The device is explicit: "cpu" for gloo
-ranks on the host, "cuda" for one card a rank (NCCL), or a card with
-share_device=True for gloo ranks that share it. The parent fails
-as soon as a rank fails or dies, and after timeout_s; it stops every
-process it started.
+the group through a FileStore in store_dir, pins torch to one thread (or
+`threads`), runs task(rank, world_size, *args, device=...,
+share_device=..., **task_kw) and sends back what it returns (numpy
+arrays, bytes and plain Python values: never tensors). The device is
+explicit: "cpu" for gloo ranks on the host, "cuda" for one card a rank
+(NCCL; rank r takes cuda:r), or a card with share_device=True for gloo
+ranks that share it. The parent fails as soon as a rank fails or dies,
+and after timeout_s; it stops every process it started.
 
 The tasks live here, in the port, so that a spawned rank imports torch
 and the port only:
   * `step_checks`: the dp and sharded chain-score steps, the collective
     index statistics and the occurrence quantile;
   * `mesh_map`: MeshMapper runs over read sets, with timed passes,
-    kernel launch counts and the chain kernels' captured inputs held to
-    their plain versions.
+    kernel launch counts, the chain kernels' captured inputs held to
+    their plain versions and timed replays of the held programs.
 """
 
 from __future__ import annotations
@@ -35,9 +35,14 @@ import torch.distributed as dist
 from .mesh import DEFAULT_TIMEOUT_S, init_process_group, make_mesh, rank_device
 
 
-def _rank_main(rank, world_size, store_path, device, share_device, timeout_s,
+def _rank_main(rank, world_size, store_path, device, share_device, timeout_s, threads,
                task, args, task_kw, results):
-    torch.set_num_threads(1)
+    if threads:
+        torch.set_num_threads(threads)
+    if torch.device(device).type == "cuda" and not share_device:
+        # one card a rank: rank_device takes cuda:LOCAL_RANK, and every
+        # rank of a spawn runs on this host
+        os.environ["LOCAL_RANK"] = str(rank)
     try:
         dev = rank_device(device, share_device)
         init_process_group(dev, share_device=share_device,
@@ -56,18 +61,19 @@ def _rank_main(rank, world_size, store_path, device, share_device, timeout_s,
 
 def spawn(task, world_size: int, *args, store_dir, device: str | torch.device,
           share_device: bool = False, timeout_s: float = DEFAULT_TIMEOUT_S,
-          task_kw: dict | None = None) -> list:
+          task_kw: dict | None = None, threads: int | None = 1) -> list:
     """task(rank, world_size, *args, device=device, share_device=share_device,
     **task_kw) on world_size spawned ranks; returns
     their results in rank order. Raises when a rank raises or exits
-    without a result, or when the run outlasts timeout_s."""
+    without a result, or when the run outlasts timeout_s. Each rank runs
+    torch on `threads` threads (None: torch's default)."""
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
     store_path = os.path.join(str(store_dir), f"store.{os.getpid()}.{time.monotonic_ns()}")
     procs = [
         ctx.Process(target=_rank_main, daemon=True,
                     args=(r, world_size, store_path, device, share_device, timeout_s,
-                          task, args, task_kw or {}, results))
+                          threads, task, args, task_kw or {}, results))
         for r in range(world_size)
     ]
     for p in procs:
@@ -191,19 +197,64 @@ def _hold_to_plain(captured: dict, log2_tab) -> list:
     return rows
 
 
+def _portable(key: tuple) -> tuple:
+    """A program key (models/programs.program_key) without the object
+    identities it holds, which differ from rank to rank."""
+    fn, shapes, statics = key
+    return fn, shapes, tuple((name, "id" if isinstance(v, tuple) and v[:1] == ("id",) else v)
+                             for name, v in statics)
+
+
+def _replay_programs(mm, rounds: int) -> list:
+    """Seconds of each of `rounds` rounds that replay every program the
+    mapper holds once (the JAX scaling_bench's program-only time), ended
+    by a synchronize on the card. Every rank replays the same keys in the
+    same order: each graph of an NCCL mesh holds collectives that pair
+    with the other ranks', so the key lists are held equal first."""
+    if mm.programs is None:
+        raise ValueError("the mapper holds no programs (an eager mapper)")
+    progs = mm.programs.programs
+    by_name = {repr(_portable(k)): p for k, p in progs.items()}
+    names = sorted(by_name)
+    if len(by_name) != len(progs) or not progs:
+        raise AssertionError(f"{len(progs)} held programs, {len(by_name)} distinct keys")
+    world = [None] * dist.get_world_size()
+    dist.all_gather_object(world, names)
+    if any(w != names for w in world):
+        raise AssertionError(f"the ranks hold different programs: {world}")
+    cuda = mm.device.type == "cuda"
+    times = []
+    for _ in range(rounds):
+        if cuda:
+            torch.cuda.synchronize(mm.device)
+        t0 = time.perf_counter()
+        for name in names:
+            by_name[name].graph.replay()
+        if cuda:
+            torch.cuda.synchronize(mm.device)
+        times.append(time.perf_counter() - t0)
+    return times
+
+
 def mesh_map(rank: int, world_size: int, runs: list, *, device: str | torch.device,
              share_device: bool = False, passes: int = 0, hold_kernels: bool = False,
              fracs=(), dm_entry: int | None = None) -> dict:
     """MeshMapper runs on this rank, on `device`. Each run is a dict: name, idx (an
     OracleIndex), cp, mp, reads, dp, ix, sharded, kw (Mapper fields) and,
-    optionally, passes (in place of `passes`) and graph (the mapper's
+    optionally, passes (in place of `passes`), graph (the mapper's
     programs become ProgramCache(device, graph=graph): on the CPU,
-    models/programs.ReplayStandIn runs the capture plumbing). Its result
-    holds the PAF blob of a first pass, then, with passes > 0, the times
+    models/programs.ReplayStandIn runs the capture plumbing), warm (the
+    untimed passes, default 1; a key captures on its second batch) and
+    program_only (the rounds of timed replays of every held program,
+    _replay_programs). Its result
+    holds the PAF blob of a first pass (each further warm pass must give
+    the same bytes), then, with passes > 0, the times
     of `passes` more passes, their kernel launch counts (set to
     0 just before them, read just after), each pass's stats and the last
     pass's apart; the
     collective stats of those passes (of the first without them); the
+    collective payload of a sharded call by shape (payload_per_call); the
+    seconds of each round of program-only replays; the
     mapper's dm_entry (this rank's shard's when sharded); with
     hold_kernels, the chain kernels' inputs captured in the first pass,
     each held to its plain version (_hold_to_plain); and, sharded, the
@@ -237,6 +288,9 @@ def mesh_map(rank: int, world_size: int, runs: list, *, device: str | torch.devi
         finally:
             kchain.captured = None
         res["first_stats"] = dict(mm.stats)
+        for _ in range(run.get("warm", 1) - 1):
+            if mm.map_reads_paf(rl) != res["blob"]:
+                raise AssertionError("a warm pass gave other bytes than the first")
         if n_passes:
             times, pass_stats = [], []
             mm.mesh.stats.clear()
@@ -258,6 +312,9 @@ def mesh_map(rank: int, world_size: int, runs: list, *, device: str | torch.devi
             if blob != res["blob"]:
                 raise AssertionError("a timed pass gave other bytes than the first")
         res["collectives"] = {kk: dict(v) for kk, v in mm.mesh.stats.items()}
+        res["payload_per_call"] = dict(mm.payload_per_call)
+        if run.get("program_only"):
+            res["program_only"] = _replay_programs(mm, run["program_only"])
         if hold_kernels:
             res["kernels"] = _hold_to_plain(captured, mm._log2_tab)
         if run["sharded"]:

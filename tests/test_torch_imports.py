@@ -18,6 +18,9 @@ from minimap2_rs_torch.ops.chain_ops import ChainScalars, log2_table
 torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parent.parent
+# the port's root scripts, each the counterpart of a JAX script
+SCRIPTS = ("bench_torch", "prof_pipeline_torch", "prof_longread_torch",
+           "prof_longread_stages_torch", "scaling_bench_torch")
 
 
 def test_port_imports_no_jax():
@@ -34,7 +37,7 @@ def test_port_imports_no_jax():
         assert f"minimap2_rs_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
-        f"for m in {mods + ['bench_torch']!r}: importlib.import_module(m)\n"
+        f"for m in {mods + list(SCRIPTS)!r}: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'jaxlib', 'minimap2_rs_tpu')))\n"
         "assert not bad, bad\n"
@@ -47,7 +50,8 @@ def test_port_imports_no_jax():
 
 def _port_sources():
     return sorted((ROOT / "minimap2_rs_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "dryrun_multigpu_torch.py", ROOT / "bench_torch.py"]
+        ROOT / "chip_smoke.py", ROOT / "dryrun_multigpu_torch.py",
+        *(ROOT / f"{m}.py" for m in SCRIPTS)]
 
 
 def _imported(tree: ast.AST):
@@ -63,8 +67,8 @@ def _imported(tree: ast.AST):
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_source_never_imports_jax_package(path):
     """No import statement of the port, of chip_smoke.py, of
-    dryrun_multigpu_torch.py or of bench_torch.py, at module level or
-    inside a function, names minimap2_rs_tpu or jax."""
+    dryrun_multigpu_torch.py or of the root scripts (SCRIPTS), at module
+    level or inside a function, names minimap2_rs_tpu or jax."""
     names = list(_imported(ast.parse(path.read_text(), str(path))))
     bad = [n for n in names if n.split(".")[0] in ("minimap2_rs_tpu", "jax", "jaxlib")]
     assert not bad, bad
