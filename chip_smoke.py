@@ -68,6 +68,18 @@ Mapper.map_reads_paf:
     and per-stage seconds, runtime/host.last_build_stage_s), 16,384
     reads of 500-1000 bp (seed 9), parity on every 64th
     (bench.py:475-531), the median of 3 passes;
+  * assembly: the reference's yardstick size (BASELINE.md), 278,413,945
+    bp (seed 11) cut into 300 contigs of lognormal lengths (seed 12),
+    built natively and on the card (equal; both timed), whose index
+    takes the two-plane position table (over 64 sequences) and, at its
+    key count, the prefix probe (no direct table under the 2 GB cap;
+    the layout and table bytes printed); 16,384 reads of 500-1000 bp
+    and 512 of 5-20 kb simulated contig by contig (seeds (13, mix,
+    contig)) on a captured lite Mapper, parity on every 64th read of
+    each mix, and those sampled reads on the general path
+    (MM2T_NO_LITE) against the exact-window oracle; the medians,
+    aligned bp/s, peak device memory and the host's peak RSS. Its
+    kernel rows count its own timed passes;
   * bench: bench_torch.py (the port's bench.py) at a cut size, `--reads
     2048 --longread-n 64 --skip-large`, before the mesh phases (it
     fails on any parity difference or a section without its kernels'
@@ -223,8 +235,9 @@ def _kernel_vs_plain(entries, tab, aux: bool, window=None, plain_reps: int = 5):
                                 key=lambda e: e[0][0].numel())
     win = window or win
     ms = time_ms(lambda: fn(*args, scal, win, tab, skip), inner=KERNEL_INNER)
+    # the comparison above has just run the plain version on these inputs
     plain_ms = time_ms(lambda: ref(*args, scal, win, tab, max_chain_skip=skip),
-                        reps=plain_reps)
+                        reps=plain_reps, warm=False)
     return err, ms, plain_ms, (args, scal, win, skip)
 
 
@@ -860,6 +873,66 @@ def _profile_pass(tag, mapper, reads, trace_dir: Path) -> dict:
     return out
 
 
+def _kernel_row(name, line, cap, key, window, plain_reps, counts, tab) -> dict:
+    """One chain-DP kernel row: the kernel held to its plain version on
+    every captured input of `key` (a phase's dict of captures, or the
+    ranks' [(key, entry)] list), timed beside its plain version, its
+    previous design and its bound; `line` the Pallas kernel's line in
+    chain_pallas.py (None: the pruned instances, which replace the JAX
+    lax.scan DP), `window` the dynamic window to hold it at (None: the
+    captured one), `counts` the launches of the path it ran on."""
+    from minimap2_rs_torch.kernels import chain_dp as kchain
+
+    src = "minimap2_rs_torch/csrc/chain_dp.cu"
+    pallas = "minimap2_rs_tpu/ops/chain_pallas.py"
+    entries = ([e for k, e in cap if k == key] if isinstance(cap, list)
+               else _launched(cap, key))
+    variant = key.split("/")[0]
+    aux = variant.startswith("chain_dp_aux")
+    shapes = [(tuple(a[0].shape), s.bw, window or w) for a, s, w, _skip in entries]
+    held = f"{variant}/dynamic" if window else key
+    if window and min(sh[1] for sh, _b, _w in shapes) <= window:
+        raise AssertionError(f"{name}: window {window} is not below A")
+    err, ms, plain_ms, (args, scal, win, skip) = _kernel_vs_plain(
+        entries, tab, aux, window, plain_reps)
+    timed = tuple(args[0].shape)
+    bound_ms, bound_by, pairs = chain_bound(args, scal, win, 4 if aux else 2, tab, skip)
+    n_launch = counts.get(held, 0)
+    design = kchain.design(timed[1], win, aux, skip)
+    n_rows = int(valid_rows(args[0]).max())
+    extra = {"design": design, "rows": n_rows,
+             "us_per_row": ms * 1e3 / n_rows if n_rows else None}
+    if design != "template":
+        # the previous design on the same inputs, in the same call
+        extra["prev_design_ms"] = time_ms(
+            lambda: kchain.template_batch(aux, *args, scal, win, tab, skip),
+            inner=KERNEL_INNER)
+    if design == "lane":
+        extra["ring_bytes"] = kchain.lane_ring_bytes(min(win, timed[1]), aux)
+    elif design == "short":
+        extra["smem_bytes"] = kchain.short_block_bytes(timed[1], aux)
+    elif design == "smem":
+        extra["smem_bytes"] = kchain.prune_block_bytes(timed[1], aux)
+        fn = kchain.chain_dp_aux_batch if aux else kchain.chain_dp_batch
+        extra["device_ms"] = device_ms(lambda: fn(*args, scal, win, tab, skip))
+    print(f"{name}: (B, A), bw, window = {shapes}, all equal; timed at "
+          f"{timed}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.6f} ms ({bound_by}; {pairs} pairs x {CHAIN_OPS_PER_PAIR} ops)"
+          + "".join(f", {k} {v:.4f}" if isinstance(v, float) else f", {k} {v}"
+                    for k, v in extra.items())
+          + f"; launches x (ms - bound) = {n_launch * (ms - bound_ms):.4f} ms")
+    # the pruned instances replace the JAX lax.scan DP with max_chain_skip
+    replaces = (f"{pallas}:{line}" if line else "minimap2_rs_tpu/ops/chain_ops.py:"
+                + ("219" if aux else "141"))
+    return dict(
+        name=name, route="cuda", source=src, replaces=replaces,
+        launches=n_launch, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        library_note=LIBRARY_NOTE, **extra,
+        shape=held.split("/")[1], timed_at=timed, on_main_path=n_launch > 0,
+    )
+
+
 def _launched(captured, key):
     """The captured inputs of `key`, one per band and anchor capacity A
     in (bw, A) order (chain DP), or one per length L (window scan)."""
@@ -1128,6 +1201,188 @@ def _prof_phase() -> None:
     print(f"prof phase {time.perf_counter() - t_all:.1f} s")
 
 
+# the assembly phase: the reference's yardstick genome size (BASELINE.md),
+# cut as a scaffold-level assembly: over 64 sequences (the unpacked (2, P)
+# position table) and, at its key count, no direct table under the 2 GB
+# cap (the prefix probe)
+ASSEMBLY_BP = 278_413_945
+ASSEMBLY_CONTIGS = 300
+ASSEMBLY_MIN_CONTIG = 20_000
+ASSEMBLY_SIGMA = 2.0
+ASSEMBLY_SHORT = 16_384  # 500-1000 bp: the 1024 bucket at A = 256
+ASSEMBLY_LONG = 512      # 5-20 kb: the lane kernels and the lazy wide pass
+
+
+def _assembly_records() -> list:
+    """random_genome(ASSEMBLY_BP, seed=11) cut into ASSEMBLY_CONTIGS contigs
+    ctg000, ctg001, ...: ASSEMBLY_MIN_CONTIG bases each plus a lognormal
+    (sigma ASSEMBLY_SIGMA) share of the rest, drawn from default_rng(12),
+    which gives a handful of chromosome-scale sequences (tens of Mbp) and
+    a long tail down to 20 kb."""
+    import numpy as np
+
+    from minimap2_rs_torch.utils.seqsim import random_genome
+
+    genome = random_genome(ASSEMBLY_BP, seed=11)
+    w = np.random.default_rng(12).lognormal(0.0, ASSEMBLY_SIGMA, ASSEMBLY_CONTIGS)
+    rest = ASSEMBLY_BP - ASSEMBLY_CONTIGS * ASSEMBLY_MIN_CONTIG
+    lens = np.floor(w / w.sum() * rest).astype(np.int64) + ASSEMBLY_MIN_CONTIG
+    lens[np.argmax(lens)] += ASSEMBLY_BP - lens.sum()
+    off = np.concatenate([[0], np.cumsum(lens)])
+    return [(f"ctg{c:03d}", genome[off[c]:off[c + 1]]) for c in range(ASSEMBLY_CONTIGS)]
+
+
+def _assembly_reads(records, n_reads: int, read_len, tag: int) -> list:
+    """n_reads reads simulated contig by contig in proportion to its
+    length (largest remainders; simulate_reads seed (13, tag, contig)), so
+    that no read spans two contigs; named contig.readN."""
+    import numpy as np
+
+    from minimap2_rs_torch.utils.seqsim import simulate_reads
+
+    lens = np.array([len(s) for _n, s in records], np.float64)
+    share = n_reads * lens / lens.sum()
+    per = np.floor(share).astype(int)
+    per[np.argsort(per - share, kind="stable")[:n_reads - per.sum()]] += 1
+    out = []
+    for c, ((name, seq), n) in enumerate(zip(records, per)):
+        out += [(f"{name}.{rn}", s) for rn, s, *_ in simulate_reads(
+            seq, int(n), read_len=read_len, seed=(13, tag, c))]
+    return out
+
+
+def _assembly_phase(cp, mp) -> list:
+    """The main path on the assembly (ASSEMBLY_BP in ASSEMBLY_CONTIGS
+    contigs): the native and the device index build, timed and equal;
+    the device index's layout and table bytes; a captured lite Mapper on
+    ASSEMBLY_SHORT reads of 500-1000 bp and ASSEMBLY_LONG of 5-20 kb (2
+    warm passes, a key capturing on its second batch, then 3 timed ones
+    that must be replays only; the short-read kernel, then the aux lane
+    kernel, launched), every 64th read of each mix byte-identical to the
+    oracle; the general path (MM2T_NO_LITE) on a captured twin over the
+    same device index with those sampled reads, held to the exact-window
+    oracle as the general phases are. Prints the medians, aligned bp/s,
+    the PAF's target contigs, the peak device memory and the host's peak
+    RSS. Returns the kernel rows' arguments for main's kernel rows (each
+    counted over this phase's own timed passes)."""
+    import dataclasses
+    import resource
+
+    import numpy as np
+    import torch
+
+    from minimap2_rs_torch.config import IndexParams
+    from minimap2_rs_torch.models.index_builder import build_index_device, build_index_native
+    from minimap2_rs_torch.models.mapper import Mapper
+    from minimap2_rs_torch.runtime import host as nhost
+
+    tag = "assembly"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    records = _assembly_records()
+    t_gen = time.perf_counter() - t0
+    lens = sorted((len(s) for _n, s in records), reverse=True)
+    t0 = time.perf_counter()
+    idx = build_index_native(records, IndexParams())
+    t_native = time.perf_counter() - t0
+    stages = nhost.last_build_stage_s()
+    t0 = time.perf_counter()
+    d_idx = build_index_device(records, IndexParams(), device="cuda")
+    t_device = time.perf_counter() - t0
+    for name in ("keys", "starts", "counts", "positions"):
+        if not np.array_equal(getattr(d_idx, name), getattr(idx, name)):
+            raise AssertionError(f"[{tag}] device index build != native on {name}")
+    seqs = [(q.name, q.offset, q.length) for q in idx.seq]
+    if [(q.name, q.offset, q.length) for q in d_idx.seq] != seqs or len(seqs) != len(records):
+        raise AssertionError(f"[{tag}] the builds' sequence tables differ")
+    del d_idx
+    rids = np.unique(idx.positions >> np.uint64(32))
+    if rids.shape[0] != ASSEMBLY_CONTIGS:
+        raise AssertionError(f"[{tag}] positions on {rids.shape[0]} contigs")
+    print(f"{tag} set-up: {ASSEMBLY_BP} bp in {len(records)} contigs (longest "
+          f"{lens[:5]}, median {lens[len(lens) // 2]}, shortest {lens[-1]}), genome "
+          f"{t_gen:.1f} s; native index build {t_native:.3f} s (stages "
+          f"{json.dumps(stages)}); device index build {t_device:.3f} s on the card, all four "
+          f"arrays and the sequence table equal; {idx.keys.shape[0]} keys, "
+          f"{idx.positions.shape[0]} positions")
+    t0 = time.perf_counter()
+    mapper = Mapper.from_oracle_index(idx, cp, mp, device="cuda", batch_size=1024)
+    torch.cuda.synchronize()
+    t_upload = time.perf_counter() - t0
+    di = mapper.dev_idx
+    if di.pos_packed or di.n_seq or di.pos.shape[0] != 2:
+        raise AssertionError(f"[{tag}] packed position plane over {len(records)} contigs")
+    tables = {name: getattr(di, name) for name in ("kv", "pos", "prefix", "dm", "dm_start",
+                                                   "seq_cum")}
+    layout = {k: getattr(di, k) for k in ("dm_entry", "dm_bits", "dm_slots", "dm_fp_bits",
+                                          "prefix_shift", "bucket_slots", "n_keys",
+                                          "pos_packed", "n_seq")}
+    layout["lookup"] = "direct table" if di.dm_slots else "prefix probe"
+    layout["table_bytes"] = {k: (None if v is None else v.numel() * v.element_size())
+                             for k, v in tables.items()}
+    print(f"{tag} device index: {t_upload:.1f} s (planner, tables, upload); layout "
+          f"{json.dumps(layout)}")
+    t0 = time.perf_counter()
+    short = _assembly_reads(records, ASSEMBLY_SHORT, (500, 1000), 0)
+    long_ = _assembly_reads(records, ASSEMBLY_LONG, (5000, 20000), 1)
+    print(f"{tag} reads: {len(short)} short, {len(long_)} long in "
+          f"{time.perf_counter() - t0:.1f} s")
+    if mapper._shapes_for(1024, 1)[1] != 256:
+        raise AssertionError(f"[{tag}] the 1024 bucket is not at A = 256")
+    counts: dict = {}  # this phase's launches, its own kernel rows
+    out = {}
+    for mix, reads, key in (("short", short, "chain_dp_aux/static"),
+                            ("long", long_, "chain_dp_aux/lane")):
+        lines, runs, cap = _map_phase(f"{tag} {mix}", mapper, reads, 3, [key], counts)
+        st = runs["captured"]["stats"]
+        if st.get("host_reads", 0) >= 0.01 * len(reads):
+            raise AssertionError(f"[{tag} {mix}] host fallback on {st.get('host_reads')} reads")
+        n_par = parity(f"{tag} {mix}", idx, reads[::64], lines, cp, mp)
+        names = {l.split("\t", 1)[0] for l in lines}
+        aligned = sum(len(s) for n, s in reads if n in names)
+        dt = median(runs["captured"]["times"])
+        targets = sorted({int(l.split("\t", 6)[5][3:]) for l in lines})
+        print(f"{tag} {mix}: median pass {dt:.4f} s, aligned {aligned / dt:.1f} bp/s "
+              f"({aligned} bp of {len(names)} mapped reads), {len(lines)} PAF lines on "
+              f"{len(targets)} contigs (the highest id {targets[-1]}); parity vs oracle: "
+              f"{n_par} reads byte-identical (every 64th); tier2_reads "
+              f"{st.get('tier2_reads', 0)}, wide_reads {st.get('wide_reads', 0)}")
+        if targets[-1] < 64:
+            raise AssertionError(f"[{tag} {mix}] no PAF line on a contig id past 63")
+        out[mix] = cap
+    # the general path on the sampled reads, on the same device index
+    sample = short[::64] + long_[::64]
+    gmapper = Mapper(idx=idx, dev_idx=di, cp=cp, mp=mp, mid_occ=mapper.mid_occ,
+                     device=mapper.device, batch_size=1024)
+    gcounts: dict = {}
+    os.environ["MM2T_NO_LITE"] = "1"
+    try:
+        if gmapper._lite_eligible():
+            raise AssertionError(f"[{tag}] MM2T_NO_LITE left the lite path on")
+        glines, _r, cap_g = _map_phase(f"{tag} general sample", gmapper, sample, 1,
+                                       ["chain_dp/static", "chain_dp/lane"], gcounts)
+    finally:
+        del os.environ["MM2T_NO_LITE"]
+    cp_exact = dataclasses.replace(cp, max_chain_skip=1 << 30)
+    n_par = parity(f"{tag} general sample", idx, sample, glines, cp_exact, mp)
+    print(f"{tag} general sample (MM2T_NO_LITE): {len(glines)} PAF lines, parity vs the "
+          f"exact-window oracle: {n_par} reads byte-identical; equal to the default oracle: "
+          f"{_agree(idx, sample, glines, cp, mp)} of {n_par} reads")
+    print(f"{tag} peak device memory {torch.cuda.max_memory_allocated()} bytes; host peak "
+          f"RSS {resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024} bytes (the "
+          f"process so far)")
+    print(f"{tag} launches over the timed passes: lite {counts}, general sample {gcounts}")
+    return [
+        ("chain_dp_aux (assembly short)", 291, out["short"], "chain_dp_aux/static", None, 5,
+         counts),
+        ("chain_dp_aux (assembly long reads)", 553, out["long"], "chain_dp_aux/lane", None, 1,
+         counts),
+        ("chain_dp (assembly general sample)", 290, cap_g, "chain_dp/static", None, 5, gcounts),
+        ("chain_dp (assembly general sample, long)", 552, cap_g, "chain_dp/lane", None, 1,
+         gcounts),
+    ]
+
+
 def main() -> int:
     import torch
 
@@ -1377,6 +1632,12 @@ def main() -> int:
     print(f"large parity vs oracle: {n_par} reads byte-identical (every 64th)")
     del bmapper, idx_big, big, brl, blines
 
+    # ---- assembly: 278,413,945 bp in 300 contigs, short and long mixes --
+    t0 = time.perf_counter()
+    assembly_rows = _assembly_phase(cp, mp)
+    torch.cuda.empty_cache()
+    print(f"assembly phase {time.perf_counter() - t0:.1f} s")
+
     # ---- device index build of the 5 Mbp genome ---------------------------
     for flag in (0, 1):
         params = IndexParams(flag=flag)
@@ -1467,8 +1728,6 @@ def main() -> int:
     # anchor capacity it ran (hifi_k19's beside the lite headline's); the
     # dynamic-window shape (A < 1024, window < A), which no mapper path
     # launches, on the same inputs at window 128
-    src = "minimap2_rs_torch/csrc/chain_dp.cu"
-    pallas = "minimap2_rs_tpu/ops/chain_pallas.py"
     tab = mapper._log2_tab
     if not torch.equal(tab, m19._log2_tab):
         raise AssertionError("the k=15 and k=19 mappers built different log2 tables")
@@ -1489,7 +1748,8 @@ def main() -> int:
         ("chain_dp_prune (CLI chain)", None, cap_cli, "chain_dp_prune/lane", None, 1),
     ]
     # the single-device rows count their launches over every single-device
-    # phase; the mesh rows over their own phase's timed passes
+    # phase but the assembly; the mesh and assembly rows over their own
+    # phase's timed passes
     rows = [(*r, total) for r in rows] + [
         ("chain_dp_aux (mesh dp, NCCL 1 rank)", 291, cap_mesh_dp, "chain_dp_aux/static",
          None, 5, n_mesh_dp),
@@ -1497,57 +1757,9 @@ def main() -> int:
          "chain_dp_aux/static", None, 5, n_mesh_sh),
         ("chain_dp_aux (mesh sharded long reads, 2 gloo ranks)", 553, cap_mesh_sh,
          "chain_dp_aux/lane", None, 1, n_mesh_sh),
-    ]
-    from minimap2_rs_torch.kernels import chain_dp as kchain
-
-    for name, line, cap, key, window, plain_reps, counts in rows:
-        # a phase's dict of captures, or the ranks' [(key, entry)] list
-        entries = ([e for k, e in cap if k == key] if isinstance(cap, list)
-                   else _launched(cap, key))
-        variant = key.split("/")[0]
-        aux = variant.startswith("chain_dp_aux")
-        shapes = [(tuple(a[0].shape), s.bw, window or w) for a, s, w, _skip in entries]
-        held = f"{variant}/dynamic" if window else key
-        if window and min(sh[1] for sh, _b, _w in shapes) <= window:
-            raise AssertionError(f"{name}: window {window} is not below A")
-        err, ms, plain_ms, (args, scal, win, skip) = _kernel_vs_plain(
-            entries, tab, aux, window, plain_reps)
-        timed = tuple(args[0].shape)
-        bound_ms, bound_by, pairs = chain_bound(args, scal, win, 4 if aux else 2, tab, skip)
-        n_launch = counts.get(held, 0)
-        design = kchain.design(timed[1], win, aux, skip)
-        n_rows = int(valid_rows(args[0]).max())
-        extra = {"design": design, "rows": n_rows,
-                 "us_per_row": ms * 1e3 / n_rows if n_rows else None}
-        if design != "template":
-            # the previous design on the same inputs, in the same call
-            extra["prev_design_ms"] = time_ms(
-                lambda: kchain.template_batch(aux, *args, scal, win, tab, skip),
-                inner=KERNEL_INNER)
-        if design == "lane":
-            extra["ring_bytes"] = kchain.lane_ring_bytes(min(win, timed[1]), aux)
-        elif design == "short":
-            extra["smem_bytes"] = kchain.short_block_bytes(timed[1], aux)
-        elif design == "smem":
-            extra["smem_bytes"] = kchain.prune_block_bytes(timed[1], aux)
-            fn = kchain.chain_dp_aux_batch if aux else kchain.chain_dp_batch
-            extra["device_ms"] = device_ms(lambda: fn(*args, scal, win, tab, skip))
-        print(f"{name}: (B, A), bw, window = {shapes}, all equal; timed at "
-              f"{timed}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{bound_ms:.6f} ms ({bound_by}; {pairs} pairs x {CHAIN_OPS_PER_PAIR} ops)"
-              + "".join(f", {k} {v:.4f}" if isinstance(v, float) else f", {k} {v}"
-                        for k, v in extra.items())
-              + f"; launches x (ms - bound) = {n_launch * (ms - bound_ms):.4f} ms")
-        # the pruned instances replace the JAX lax.scan DP with max_chain_skip
-        replaces = (f"{pallas}:{line}" if line else "minimap2_rs_tpu/ops/chain_ops.py:"
-                    + ("219" if aux else "141"))
-        kernels.append(dict(
-            name=name, route="cuda", source=src, replaces=replaces,
-            launches=n_launch, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-            library_note=LIBRARY_NOTE, **extra,
-            shape=held.split("/")[1], timed_at=timed, on_main_path=n_launch > 0,
-        ))
+    ] + assembly_rows
+    for row in rows:
+        kernels.append(_kernel_row(*row, tab))
 
     # the window scan: every short entry whole, the long ones on 8 rows
     for cls, max_rows in (("short", None), ("long", 8)):

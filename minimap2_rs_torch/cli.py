@@ -95,6 +95,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-p", "--pri-ratio", type=float, default=0.8)
     p.add_argument("-N", "--best-n", type=int, default=5)
     p.add_argument("-x", dest="preset", default=None)
+    p.add_argument("-a", dest="out_sam", action="store_true", help="(ignored; PAF only)")
     p.add_argument("-o", dest="output", default=None)
     p.add_argument("--first-only", action="store_true",
                    help="map only the first query record (reference behavior)")

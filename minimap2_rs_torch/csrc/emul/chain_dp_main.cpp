@@ -6,9 +6,9 @@
 // IN holds int32 [B, A, H, max_dist_x, max_dist_y, bw, tab_len, max_skip],
 // float32 [pen_gap, pen_skip], the (B, A) int32 columns grp, rpos, qpos
 // and span, then the float32 log2 table of tab_len entries. For each ENTRY
-// (e.g. mm2t_chain_dp_aux_short), in order, OUT gets its int32 return code
-// and then its (B, A) int32 outputs: four for the aux entries (f, cnt, sq,
-// sr), two for the others (f, prev). The pruned entries get max_skip, and
+// (e.g. mm2t_chain_dp_aux_short or mm2t_chain_dp_aux_lane), in order, OUT
+// gets its int32 return code and then its (B, A) int32 outputs: four for
+// the aux entries (f, cnt, sq, sr), two for the others (f, prev). The pruned entries get max_skip, and
 // the template's pruned entries their scratch as well.
 #include <cstdio>
 #include <cstring>
@@ -30,6 +30,8 @@ int mm2t_chain_dp_aux(cp, cp, cp, cp, vp, vp, vp, vp, cp, int, SCALARS, vp);
 int mm2t_chain_dp_aux_short(cp, cp, cp, cp, vp, vp, vp, vp, cp, int, SCALARS, vp);
 int mm2t_chain_dp(cp, cp, cp, cp, vp, vp, cp, int, SCALARS, vp);
 int mm2t_chain_dp_short(cp, cp, cp, cp, vp, vp, cp, int, SCALARS, vp);
+int mm2t_chain_dp_aux_lane(cp, cp, cp, cp, vp, vp, vp, vp, cp, int, SCALARS, vp);
+int mm2t_chain_dp_lane(cp, cp, cp, cp, vp, vp, cp, int, SCALARS, vp);
 int mm2t_chain_dp_aux_prune(cp, cp, cp, cp, vp, vp, vp, vp, vp, vp, cp, int, SCALARS,
                             int, vp);
 int mm2t_chain_dp_prune(cp, cp, cp, cp, vp, vp, vp, cp, int, SCALARS, int, vp);
@@ -51,6 +53,8 @@ const Named kEntries[] = {
     {"mm2t_chain_dp_aux_short", 4, 0, false, (void*)mm2t_chain_dp_aux_short},
     {"mm2t_chain_dp", 2, 0, false, (void*)mm2t_chain_dp},
     {"mm2t_chain_dp_short", 2, 0, false, (void*)mm2t_chain_dp_short},
+    {"mm2t_chain_dp_aux_lane", 4, 0, false, (void*)mm2t_chain_dp_aux_lane},
+    {"mm2t_chain_dp_lane", 2, 0, false, (void*)mm2t_chain_dp_lane},
     {"mm2t_chain_dp_aux_prune", 4, 2, true, (void*)mm2t_chain_dp_aux_prune},
     {"mm2t_chain_dp_prune", 2, 1, true, (void*)mm2t_chain_dp_prune},
     {"mm2t_chain_dp_aux_prune_smem", 4, 0, true, (void*)mm2t_chain_dp_aux_prune_smem},

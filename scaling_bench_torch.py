@@ -266,8 +266,9 @@ def main(argv=None, sizes: dict | None = None) -> dict:
         if not pay:
             raise AssertionError("the sharded run recorded no collective payload")
         bpr = max(v["collective_bytes_per_read"] for v in pay.values())
+        # bytes a read times the record's reads a second, as ADDED states it
         rec.update(collective_payload_per_call=pay, collective_bytes_per_read=bpr,
-                   collective_bytes_per_s=bpr * len(rl) / tn)
+                   collective_bytes_per_s=bpr * rec[f"reads_per_s_dp{N}"])
     rec.update(pass_times_s=times, program_rounds_s=rounds, launches=launches,
                collectives=colls, paf_sha256=hashlib.sha256(blob).hexdigest())
     print(json.dumps(rec))

@@ -2,11 +2,14 @@
 g++ against csrc/emul/cuda_emul.h (one std::thread per CUDA thread,
 std::barrier for the barriers, the warp intrinsics between warp
 barriers), its short-read entry points and both designs of the pruned
-instances run on seeded inputs and held equal to the plain versions. A
-text pass includes the header in place of <cuda_runtime.h> and rewrites
-the dynamic shared memory declarations and the <<<...>>> launches into
-calls of the header. The short-read kernel is built at one warp a read
-(kShortThreads = 32) and at two (64)."""
+instances and its lane (block-per-read) entry points run on seeded
+inputs and held equal to the plain versions. A text pass includes the
+header in place of <cuda_runtime.h> and rewrites the dynamic shared
+memory declarations and the <<<...>>> launches into calls of the header.
+The source is built twice: at one warp a read for the short-read kernel
+(kShortThreads = 32) with the lane kernel's block of 512 threads, as
+the card runs them, and at two warps a read with a lane block of 64
+threads, whose ring of H + 64 slots wraps within a short read."""
 
 import re
 import shutil
@@ -32,6 +35,8 @@ torch.set_num_threads(2)
 
 CSRC = Path(__file__).resolve().parent.parent / "minimap2_rs_torch" / "csrc"
 THREADS = (32, 64)
+# kLaneThreads of the build at each kShortThreads
+LANE_THREADS = {32: 512, 64: 64}
 SHORT = ("mm2t_chain_dp_aux_short", "mm2t_chain_dp_short")
 TEMPLATE = ("mm2t_chain_dp_aux", "mm2t_chain_dp")
 
@@ -67,8 +72,8 @@ def build_emulated(gxx: str, out: Path, stem: str, src: str, main: str) -> Path:
 
 @pytest.fixture(scope="module")
 def binaries(tmp_path_factory):
-    """{kShortThreads: path of the emulated entry-point runner}, built in
-    parallel."""
+    """{kShortThreads: path of the emulated entry-point runner, its lane
+    block LANE_THREADS[kShortThreads]}, built in parallel."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ is not installed")
@@ -77,7 +82,9 @@ def binaries(tmp_path_factory):
 
     def build(threads):
         return build_emulated(gxx, out, f"chain_dp_t{threads}",
-                              emulated_source(src, kShortThreads=threads), "chain_dp_main.cpp")
+                              emulated_source(src, kShortThreads=threads,
+                                              kLaneThreads=LANE_THREADS[threads]),
+                              "chain_dp_main.cpp")
 
     with ThreadPoolExecutor(len(THREADS)) as ex:
         return dict(zip(THREADS, ex.map(build, THREADS)))
@@ -227,6 +234,83 @@ def test_emulated_launch_refuses_an_oversized_block(binaries, tmp_path):
     got = _run(binaries[THREADS[0]], tmp_path, cols, scal, A, log2_table(501),
                ("mm2t_chain_dp_aux_short",))
     assert got["mm2t_chain_dp_aux_short"][0] != 0
+
+
+# ---- the lane kernel (A >= 1024, exact window) ------------------------------
+
+LANE = ("mm2t_chain_dp_aux_lane", "mm2t_chain_dp_lane")
+
+
+def _padded(arrs, A):
+    """(1, n) columns padded to (1, A)."""
+    fill = (-1, -1, -1, 255)
+    return tuple(np.concatenate([a, np.full((1, A - a.shape[1]), fill[c], np.int32)], axis=1)
+                 for c, a in enumerate(arrs))
+
+
+def _lane_case(name):
+    """(cols, scalars, window) of a named lane case: B <= 2, A 1024-1200,
+    H 1024."""
+    default = chain_scalars_from_params(ChainParams.defaults_for_k(15))
+    tie = chain_scalars_from_params(ChainParams.defaults_for_k(15, **TIE_KW))
+    if name == "A = 1200, the ring wraps":
+        # at 64 threads R = H + 64 = 1088 slots: rows past it take the
+        # slots of rows a ring back, loaded a tile or more earlier
+        return chains(np.random.default_rng(31), 1, 1200, [1200]), default, 1024
+    if name == "n = 0 and n < H (A = 1024)":
+        return chains(np.random.default_rng(37), 2, 1024, [0, 300]), default, 1024
+    if name == "tie read (A = 1024)":
+        return _padded(tie_read(), 1024), tie, 1024
+    if name == "tie 512 slots apart (A = 1024)":
+        # anchor 3's tied predecessors 1 and 513 are scored by one thread
+        # at either block size; one anchor of another group follows 513,
+        # so neither is the newest slot
+        g, r, q, sp = tie_read()
+        fill = lambda v, k: np.full((1, k), v, np.int32)
+        arrs = tuple(np.concatenate([a[:, :2], fill(v, 511), a[:, 2:3], fill(v, 1), a[:, 3:]],
+                                    axis=1)
+                     for a, v in zip((g, r, q, sp), (7, 5000, 5000, 15)))
+        return _padded(arrs, 1024), tie, 1024
+    if name == "positions near 2^31 - 1 (A = 1024)":
+        cols = chains(np.random.default_rng(41), 1, 1024, [300], r0=2**31 - 1 - 260_000,
+                      q0=2**31 - 1 - 30_000)
+        return cols, default, 1024
+    raise KeyError(name)
+
+
+LANE_CASES = ("A = 1200, the ring wraps", "n = 0 and n < H (A = 1024)",
+              "tie read (A = 1024)", "tie 512 slots apart (A = 1024)",
+              "positions near 2^31 - 1 (A = 1024)")
+# every case at a block of 64 threads; the short ones at the card's 512
+# too (an emulated block of 512 threads is slow under a loaded host)
+LANE_PARAMS = [(c, 64) for c in LANE_CASES] + [(c, 32) for c in LANE_CASES[1:3]]
+
+
+@pytest.mark.parametrize("case,threads", LANE_PARAMS)
+def test_emulated_lane_kernel_equals_plain(binaries, tmp_path, case, threads):
+    """Both lane entry points (a block of LANE_THREADS[threads] threads a
+    read, the window in a shared-memory ring) give the plain versions'
+    outputs bit for bit."""
+    cols, scal, window = _lane_case(case)
+    tab = log2_table(scal.bw + 1)
+    got = _run(binaries[threads], tmp_path, cols, scal, window, tab, LANE)
+    t = tuple(torch.from_numpy(c.copy()) for c in cols)
+    want_aux = chain_dp_aux_batch_ref(*t, scal, window, tab)
+    want_prev = chain_dp_batch_ref(*t, scal, window, tab)
+    for entry, (rc, outs) in got.items():
+        assert rc == 0, (entry, rc)
+        want = want_aux if "_aux" in entry else want_prev
+        for name, g, w in zip(("f", "cnt/prev", "sq", "sr"), outs, want):
+            np.testing.assert_array_equal(g, w.numpy(), err_msg=f"{entry}: {name}")
+    # the cases reach what they are named for
+    prev = want_prev[1]
+    assert (prev >= 0).any()
+    if case.startswith("tie read"):
+        assert prev[0, 3].item() == 2
+    if case.startswith("tie 512"):
+        assert prev[0, 515].item() == 513
+    if case.startswith("A = 1200"):
+        assert (prev[0, 1088:] >= 0).any()
 
 
 # ---- the pruned instances (max_chain_skip) ---------------------------------

@@ -7,8 +7,10 @@ engine; `anchors` and `chain` the same stdout for each engine at odd and
 even k; `align --mesh 1` the JAX CLI's `--mesh 1` bytes, and 2 ranks
 under torchrun the single-device bytes. A cuda request
 without CUDA, and a mesh of more ranks than the launch has, exit
-non-zero."""
+non-zero. The port's parser takes every option of the JAX one (`-a`
+included, ignored as there)."""
 
+import argparse
 import os
 import subprocess
 import sys
@@ -175,3 +177,31 @@ def test_anchor_overflow_goes_to_the_host_oracle(fixtures, capsys, monkeypatch):
     assert tcli.main([*argv, "--engine", "device"]) == 0
     got = capsys.readouterr()
     assert got.out == want and "overflow" in got.err
+
+
+def _subcommand_options(parser) -> dict:
+    """{subcommand: its option strings} of an argparse parser."""
+    sub = next(a for a in parser._actions if isinstance(a, argparse._SubParsersAction))
+    return {name: set(p._option_string_actions) for name, p in sub.choices.items()}
+
+
+def test_port_parser_accepts_every_jax_option():
+    """Every subcommand of the JAX CLI, and every option string it takes,
+    exists on the port's (whose extras, such as --device, are its own)."""
+    jax_opts, port_opts = (_subcommand_options(m.build_parser()) for m in (jcli, tcli))
+    assert set(jax_opts) <= set(port_opts)
+    missing = {c: sorted(o - port_opts[c]) for c, o in jax_opts.items() if o - port_opts[c]}
+    assert not missing, missing
+    assert "-a" in port_opts["align"]
+
+
+def test_align_a_maps_as_without_it(fixtures):
+    """`align -a` (SAM output, which the JAX CLI accepts and ignores) gives
+    the bytes of `align`."""
+    d, ref, reads = fixtures
+    out = []
+    for extra in ([], ["-a"]):
+        assert tcli.main(["align", *extra, ref, reads, "--device", "cpu", "-o",
+                          str(d / "a.paf")]) == 0
+        out.append((d / "a.paf").read_bytes())
+    assert out[0] == out[1] and out[0].count(b"\n") >= 15
