@@ -78,8 +78,22 @@ Mapper.map_reads_paf:
     contig)) on a captured lite Mapper, parity on every 64th read of
     each mix, and those sampled reads on the general path
     (MM2T_NO_LITE) against the exact-window oracle; the medians,
-    aligned bp/s, peak device memory and the host's peak RSS. Its
+    aligned bp/s, the wire flags of each mix's first pass, the lookup
+    stage's card time, peak device memory and the host's peak RSS. Its
     kernel rows count its own timed passes;
+  * chm13: a human-sized reference, 3,117,292,070 bp (seed 11) cut into
+    T2T-CHM13v2.0's 25 sequences at their lengths (past 2^31 bases, so
+    the length alone refuses the packed position plane), in a child
+    process (`python3 chip_smoke.py --phase chm13` runs it alone): the
+    native and the device index build (equal; both timed), the .mmi
+    written and read back (equal) and the mapper made from it; the
+    layout and table bytes; 16,384 short and 512 long reads as in the
+    assembly phase, parity on every 64th read of each, the short mix on
+    all 24 nuclear chromosomes at CHM13's target lengths, the wire flags
+    and host-fallback share of each mix (printed, not gated); the
+    general-path sample; the lookup stage's card time; peak device
+    memory and the child's peak RSS. It times its own four kernel rows
+    and hands them to the parent;
   * bench: bench_torch.py (the port's bench.py) at a cut size, `--reads
     2048 --longread-n 64 --skip-large`, before the mesh phases (it
     fails on any parity difference or a section without its kernels'
@@ -176,6 +190,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -204,7 +219,7 @@ def _kernel_vs_plain(entries, tab, aux: bool, window=None, plain_reps: int = 5):
     median) on the largest normal-band launch, which is returned too as
     (args, scalars, window, max_chain_skip). aux picks the variant:
     (f, cnt, sq, sr) or (f, prev). Long shapes time the plain version
-    with fewer repeats."""
+    with fewer repeats: at plain_reps 1, its run in the comparison."""
     import torch
 
     from minimap2_rs_torch.kernels import chain_dp as kchain
@@ -216,12 +231,21 @@ def _kernel_vs_plain(entries, tab, aux: bool, window=None, plain_reps: int = 5):
     else:
         fn, ref = kchain.chain_dp_batch, chain_ops.chain_dp_batch_ref
         names = ("f", "prev")
+    bw0 = entries[0][1].bw
+    largest = max((e for e in entries if e[1].bw == bw0), key=lambda e: e[0][0].numel())
     err = 0
-    for args, scal, win, skip in entries:
+    for entry in entries:
+        args, scal, win, skip = entry
         win = window or win
         got = fn(*args, scal, win, tab, skip)
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
         want = ref(*args, scal, win, tab, max_chain_skip=skip)
+        t1.record()
         torch.cuda.synchronize()
+        if entry is largest:
+            plain_ms = t0.elapsed_time(t1)
         for name, g, w in zip(names, got, want):
             if not torch.equal(g, w):
                 bad = (g != w).nonzero()[:5].tolist()
@@ -230,14 +254,13 @@ def _kernel_vs_plain(entries, tab, aux: bool, window=None, plain_reps: int = 5):
                     f"at {bad}"
                 )
             err = max(err, int((g.long() - w.long()).abs().max()))
-    bw0 = entries[0][1].bw
-    args, scal, win, skip = max((e for e in entries if e[1].bw == bw0),
-                                key=lambda e: e[0][0].numel())
+    args, scal, win, skip = largest
     win = window or win
     ms = time_ms(lambda: fn(*args, scal, win, tab, skip), inner=KERNEL_INNER)
-    # the comparison above has just run the plain version on these inputs
-    plain_ms = time_ms(lambda: ref(*args, scal, win, tab, max_chain_skip=skip),
-                        reps=plain_reps, warm=False)
+    if plain_reps > 1:
+        # the comparison above has just run the plain version on these inputs
+        plain_ms = time_ms(lambda: ref(*args, scal, win, tab, max_chain_skip=skip),
+                           reps=plain_reps, warm=False)
     return err, ms, plain_ms, (args, scal, win, skip)
 
 
@@ -631,12 +654,13 @@ def _programs_line(mapper) -> str:
             f"pool {pc.pool_bytes} bytes")
 
 
-def _map_phase(tag, mappers, reads, passes, keys, total):
+def _map_phase(tag, mappers, reads, passes, keys, total, flags=None):
     """Warm passes of each mapper (a Mapper, or {label: Mapper} of mappers
     that must give the same bytes; the first is the main path): one, and
     for a mapper with captured programs a second (a key's first batch
     runs eagerly, its second captures it), both keeping the kernels'
-    inputs (_capturing) and timed, as the first and second pass; then
+    inputs (_capturing) and timed, as the first and second pass (a
+    _FlagCounts given as `flags` counts the first mapper's first); then
     `passes` timed passes of each, in turns (a b b a ...). Each mapper's
     timed passes count their launches apart (_counted; each must launch
     every one of `keys`) and have their stage accounting checked
@@ -654,9 +678,12 @@ def _map_phase(tag, mappers, reads, passes, keys, total):
     with _capturing() as captured:
         for label in labels:
             m = mappers[label]
-            for _w in range(2 if m.programs is not None else 1):
+            for w in range(2 if m.programs is not None else 1):
+                counting = (flags if flags and w == 0 and label == labels[0]
+                            else contextlib.nullcontext())
                 t1 = time.perf_counter()
-                m.map_reads_paf(reads)
+                with counting:
+                    m.map_reads_paf(reads)
                 torch.cuda.synchronize()
                 runs[label]["warm"].append(time.perf_counter() - t1)
             print(f"{tag} ({label}) first and second pass (s): "
@@ -703,6 +730,46 @@ def _map_phase(tag, mappers, reads, passes, keys, total):
               + "; last pass " + json.dumps({k: [runs[x]["stats"].get(k) for x in labels]
                                              for k in HOST_STATS}))
     return lines, runs, captured
+
+
+# the lite wire's per-read flags (ops/finalize_ops.FIELDS)
+WIRE_FLAGS = ("mini_ovf", "anc_ovf", "win_ovf", "rescue")
+
+
+class _FlagCounts:
+    """While open, counts the reads of the lite path's first-round rows
+    (Mapper._postprocess_lite in modes "normal" and "lazy": the rows of
+    the first device call of each read, before the wide pass and the 4x
+    tier) that carry each of WIRE_FLAGS: `n` {flag: reads}, and
+    `overflow`, the reads with any of the three overflow flags, which the
+    4x tier takes."""
+
+    def __init__(self):
+        self.n = dict.fromkeys(WIRE_FLAGS, 0)
+        self.overflow = 0
+
+    def __enter__(self):
+        from minimap2_rs_torch.models.mapper import Mapper
+        from minimap2_rs_torch.ops.finalize_ops import FIELDS
+
+        col = [FIELDS.index(f) for f in WIRE_FLAGS]
+        self._orig = orig = Mapper._postprocess_lite
+
+        def counted(m, reads, chunk, fields, results, mode="normal"):
+            if mode in ("normal", "lazy"):
+                set_ = fields[:len(chunk)][:, col] != 0
+                for f, c in zip(WIRE_FLAGS, set_.sum(axis=0).tolist()):
+                    self.n[f] += c
+                self.overflow += int(set_[:, :3].any(axis=1).sum())
+            return orig(m, reads, chunk, fields, results, mode=mode)
+
+        Mapper._postprocess_lite = counted
+        return self
+
+    def __exit__(self, *exc):
+        from minimap2_rs_torch.models.mapper import Mapper
+
+        Mapper._postprocess_lite = self._orig
 
 
 def _forced_phases(cp, mp, total) -> None:
@@ -1251,41 +1318,15 @@ def _assembly_reads(records, n_reads: int, read_len, tag: int) -> list:
     return out
 
 
-def _assembly_phase(cp, mp) -> list:
-    """The main path on the assembly (ASSEMBLY_BP in ASSEMBLY_CONTIGS
-    contigs): the native and the device index build, timed and equal;
-    the device index's layout and table bytes; a captured lite Mapper on
-    ASSEMBLY_SHORT reads of 500-1000 bp and ASSEMBLY_LONG of 5-20 kb (2
-    warm passes, a key capturing on its second batch, then 3 timed ones
-    that must be replays only; the short-read kernel, then the aux lane
-    kernel, launched), every 64th read of each mix byte-identical to the
-    oracle; the general path (MM2T_NO_LITE) on a captured twin over the
-    same device index with those sampled reads, held to the exact-window
-    oracle as the general phases are. Prints the medians, aligned bp/s,
-    the PAF's target contigs, the peak device memory and the host's peak
-    RSS. Returns the kernel rows' arguments for main's kernel rows (each
-    counted over this phase's own timed passes)."""
-    import dataclasses
-    import resource
-
+def _device_build_equal(tag, records, idx) -> float:
+    """build_index_device of `records` on the card, held to the native
+    build `idx`: the four arrays and the sequence table equal. Returns its
+    seconds."""
     import numpy as np
-    import torch
 
     from minimap2_rs_torch.config import IndexParams
-    from minimap2_rs_torch.models.index_builder import build_index_device, build_index_native
-    from minimap2_rs_torch.models.mapper import Mapper
-    from minimap2_rs_torch.runtime import host as nhost
+    from minimap2_rs_torch.models.index_builder import build_index_device
 
-    tag = "assembly"
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    records = _assembly_records()
-    t_gen = time.perf_counter() - t0
-    lens = sorted((len(s) for _n, s in records), reverse=True)
-    t0 = time.perf_counter()
-    idx = build_index_native(records, IndexParams())
-    t_native = time.perf_counter() - t0
-    stages = nhost.last_build_stage_s()
     t0 = time.perf_counter()
     d_idx = build_index_device(records, IndexParams(), device="cuda")
     t_device = time.perf_counter() - t0
@@ -1295,64 +1336,67 @@ def _assembly_phase(cp, mp) -> list:
     seqs = [(q.name, q.offset, q.length) for q in idx.seq]
     if [(q.name, q.offset, q.length) for q in d_idx.seq] != seqs or len(seqs) != len(records):
         raise AssertionError(f"[{tag}] the builds' sequence tables differ")
-    del d_idx
-    rids = np.unique(idx.positions >> np.uint64(32))
-    if rids.shape[0] != ASSEMBLY_CONTIGS:
-        raise AssertionError(f"[{tag}] positions on {rids.shape[0]} contigs")
-    print(f"{tag} set-up: {ASSEMBLY_BP} bp in {len(records)} contigs (longest "
-          f"{lens[:5]}, median {lens[len(lens) // 2]}, shortest {lens[-1]}), genome "
-          f"{t_gen:.1f} s; native index build {t_native:.3f} s (stages "
-          f"{json.dumps(stages)}); device index build {t_device:.3f} s on the card, all four "
-          f"arrays and the sequence table equal; {idx.keys.shape[0]} keys, "
-          f"{idx.positions.shape[0]} positions")
-    t0 = time.perf_counter()
-    mapper = Mapper.from_oracle_index(idx, cp, mp, device="cuda", batch_size=1024)
-    torch.cuda.synchronize()
-    t_upload = time.perf_counter() - t0
+    return t_device
+
+
+def _two_planes(tag, mapper, n_seq: int) -> dict:
+    """The mapper's device index must hold the (2, P) position planes (no
+    packed plane); returns its layout scalars and table bytes, printed by
+    the caller."""
     di = mapper.dev_idx
     if di.pos_packed or di.n_seq or di.pos.shape[0] != 2:
-        raise AssertionError(f"[{tag}] packed position plane over {len(records)} contigs")
+        raise AssertionError(f"[{tag}] packed position plane over {n_seq} sequences")
     tables = {name: getattr(di, name) for name in ("kv", "pos", "prefix", "dm", "dm_start",
                                                    "seq_cum")}
     layout = {k: getattr(di, k) for k in ("dm_entry", "dm_bits", "dm_slots", "dm_fp_bits",
                                           "prefix_shift", "bucket_slots", "n_keys",
                                           "pos_packed", "n_seq")}
     layout["lookup"] = "direct table" if di.dm_slots else "prefix probe"
+    layout["mid_occ"] = mapper.mid_occ
     layout["table_bytes"] = {k: (None if v is None else v.numel() * v.element_size())
                              for k, v in tables.items()}
-    print(f"{tag} device index: {t_upload:.1f} s (planner, tables, upload); layout "
-          f"{json.dumps(layout)}")
-    t0 = time.perf_counter()
-    short = _assembly_reads(records, ASSEMBLY_SHORT, (500, 1000), 0)
-    long_ = _assembly_reads(records, ASSEMBLY_LONG, (5000, 20000), 1)
-    print(f"{tag} reads: {len(short)} short, {len(long_)} long in "
-          f"{time.perf_counter() - t0:.1f} s")
-    if mapper._shapes_for(1024, 1)[1] != 256:
-        raise AssertionError(f"[{tag}] the 1024 bucket is not at A = 256")
-    counts: dict = {}  # this phase's launches, its own kernel rows
-    out = {}
-    for mix, reads, key in (("short", short, "chain_dp_aux/static"),
-                            ("long", long_, "chain_dp_aux/lane")):
-        lines, runs, cap = _map_phase(f"{tag} {mix}", mapper, reads, 3, [key], counts)
-        st = runs["captured"]["stats"]
-        if st.get("host_reads", 0) >= 0.01 * len(reads):
-            raise AssertionError(f"[{tag} {mix}] host fallback on {st.get('host_reads')} reads")
-        n_par = parity(f"{tag} {mix}", idx, reads[::64], lines, cp, mp)
-        names = {l.split("\t", 1)[0] for l in lines}
-        aligned = sum(len(s) for n, s in reads if n in names)
-        dt = median(runs["captured"]["times"])
-        targets = sorted({int(l.split("\t", 6)[5][3:]) for l in lines})
-        print(f"{tag} {mix}: median pass {dt:.4f} s, aligned {aligned / dt:.1f} bp/s "
-              f"({aligned} bp of {len(names)} mapped reads), {len(lines)} PAF lines on "
-              f"{len(targets)} contigs (the highest id {targets[-1]}); parity vs oracle: "
-              f"{n_par} reads byte-identical (every 64th); tier2_reads "
-              f"{st.get('tier2_reads', 0)}, wide_reads {st.get('wide_reads', 0)}")
-        if targets[-1] < 64:
-            raise AssertionError(f"[{tag} {mix}] no PAF line on a contig id past 63")
-        out[mix] = cap
-    # the general path on the sampled reads, on the same device index
-    sample = short[::64] + long_[::64]
-    gmapper = Mapper(idx=idx, dev_idx=di, cp=cp, mp=mp, mid_occ=mapper.mid_occ,
+    return layout
+
+
+def _map_mix(tag, mapper, reads, key, counts, idx, cp, mp):
+    """One mix on a captured lite Mapper: _map_phase with 3 timed passes
+    (the kernel `key` launched), the wire flags of the first pass, every
+    64th read byte-identical to the oracle. Prints the median pass,
+    aligned bp/s, the PAF's targets, the tiers' reads, the host items of
+    the last pass and the host-fallback share. Returns (lines, the last
+    pass's stats, captured inputs)."""
+    flags = _FlagCounts()
+    lines, runs, cap = _map_phase(tag, mapper, reads, 3, [key], counts, flags=flags)
+    st = runs["captured"]["stats"]
+    n_par = parity(tag, idx, reads[::64], lines, cp, mp)
+    names = {l.split("\t", 1)[0] for l in lines}
+    aligned = sum(len(s) for n, s in reads if n in names)
+    dt = median(runs["captured"]["times"])
+    targets = sorted({l.split("\t", 6)[5] for l in lines})
+    host = st.get("host_reads", 0)
+    print(f"{tag}: median pass {dt:.4f} s, aligned {aligned / dt:.1f} bp/s ({aligned} bp of "
+          f"{len(names)} mapped reads), {len(lines)} PAF lines on {len(targets)} targets; "
+          f"parity vs oracle: {n_par} reads byte-identical (every 64th); tier2_reads "
+          f"{st.get('tier2_reads', 0)}, wide_reads {st.get('wide_reads', 0)}, host_reads "
+          f"{host}; host items (s) " + json.dumps({k: st.get(k) for k in (
+              "submit", "post", "tier2", "d2h+wait")}))
+    print(f"{tag}: wire flags on the first pass (reads, mid_occ {mapper.mid_occ}): "
+          f"{json.dumps(flags.n)}, any overflow {flags.overflow} of {len(reads)}; host "
+          f"fallback {host} reads, share {host / len(reads):.6f} (the assembly phase's "
+          f"gate: below 0.01)")
+    return lines, st, cap
+
+
+def _general_sample(tag, idx, mapper, sample, cp, mp):
+    """The general path (MM2T_NO_LITE) on `sample` on a captured twin over
+    the same device index, held to the exact-window oracle (its agreement
+    with the default oracle printed). Returns (captured inputs, launches
+    of its timed pass)."""
+    import dataclasses
+
+    from minimap2_rs_torch.models.mapper import Mapper
+
+    gmapper = Mapper(idx=idx, dev_idx=mapper.dev_idx, cp=cp, mp=mp, mid_occ=mapper.mid_occ,
                      device=mapper.device, batch_size=1024)
     gcounts: dict = {}
     os.environ["MM2T_NO_LITE"] = "1"
@@ -1368,24 +1412,427 @@ def _assembly_phase(cp, mp) -> list:
     print(f"{tag} general sample (MM2T_NO_LITE): {len(glines)} PAF lines, parity vs the "
           f"exact-window oracle: {n_par} reads byte-identical; equal to the default oracle: "
           f"{_agree(idx, sample, glines, cp, mp)} of {n_par} reads")
-    print(f"{tag} peak device memory {torch.cuda.max_memory_allocated()} bytes; host peak "
-          f"RSS {resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024} bytes (the "
-          f"process so far)")
-    print(f"{tag} launches over the timed passes: lite {counts}, general sample {gcounts}")
+    return cap_g, gcounts
+
+
+def _lookup_ms(tag, mapper, reads) -> dict:
+    """bench_torch.stage_ms_per_call at the 1024 bucket on `mapper`
+    (after its passes): each stage's card ms a call, printed with the
+    index layout that sets `lookup`."""
+    import bench_torch
+
+    ms = bench_torch.stage_ms_per_call(mapper, reads, 1024)
+    di = mapper.dev_idx
+    how = (f"direct table dm_entry {di.dm_entry}, p {di.dm_bits}, S {di.dm_slots}"
+           if di.dm_slots else f"prefix probe S {di.bucket_slots}, shift {di.prefix_shift}")
+    print(f"{tag} stage ms a 1024-read call (bench_torch.stage_ms_per_call; {how}, "
+          f"{di.n_keys} keys): lookup {ms['lookup']:.4f}; " + json.dumps(ms))
+    return ms
+
+
+def _phase_rows(tag, out, cap_g, counts, gcounts) -> list:
+    """A reference phase's four kernel rows' arguments for _kernel_row
+    (each counted over that phase's own timed passes)."""
     return [
-        ("chain_dp_aux (assembly short)", 291, out["short"], "chain_dp_aux/static", None, 5,
+        (f"chain_dp_aux ({tag} short)", 291, out["short"], "chain_dp_aux/static", None, 5,
          counts),
-        ("chain_dp_aux (assembly long reads)", 553, out["long"], "chain_dp_aux/lane", None, 1,
+        (f"chain_dp_aux ({tag} long reads)", 553, out["long"], "chain_dp_aux/lane", None, 1,
          counts),
-        ("chain_dp (assembly general sample)", 290, cap_g, "chain_dp/static", None, 5, gcounts),
-        ("chain_dp (assembly general sample, long)", 552, cap_g, "chain_dp/lane", None, 1,
+        (f"chain_dp ({tag} general sample)", 290, cap_g, "chain_dp/static", None, 5, gcounts),
+        (f"chain_dp ({tag} general sample, long)", 552, cap_g, "chain_dp/lane", None, 1,
          gcounts),
     ]
 
 
-def main() -> int:
+def _peak_line(tag) -> str:
+    import resource
+
     import torch
 
+    return (f"{tag} peak device memory {torch.cuda.max_memory_allocated()} bytes; host peak "
+            f"RSS {resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024} bytes (the "
+            f"process so far)")
+
+
+def _assembly_phase(cp, mp) -> list:
+    """The main path on the assembly (ASSEMBLY_BP in ASSEMBLY_CONTIGS
+    contigs): the native and the device index build, timed and equal;
+    the device index's layout and table bytes; a captured lite Mapper on
+    ASSEMBLY_SHORT reads of 500-1000 bp and ASSEMBLY_LONG of 5-20 kb (2
+    warm passes, a key capturing on its second batch, then 3 timed ones
+    that must be replays only; the short-read kernel, then the aux lane
+    kernel, launched), every 64th read of each mix byte-identical to the
+    oracle, under 1% of each mix sent to the host pipeline; the general
+    path (MM2T_NO_LITE) on a captured twin over the same device index
+    with those sampled reads, held to the exact-window oracle as the
+    general phases are. Prints the medians, aligned bp/s, the wire flags
+    of each mix's first pass, the lookup stage's card time, the PAF's
+    target contigs, the peak device memory and the host's peak RSS.
+    Returns the kernel rows' arguments for main's kernel rows (each
+    counted over this phase's own timed passes)."""
+    import numpy as np
+    import torch
+
+    from minimap2_rs_torch.config import IndexParams
+    from minimap2_rs_torch.models.index_builder import build_index_native
+    from minimap2_rs_torch.models.mapper import Mapper
+    from minimap2_rs_torch.runtime import host as nhost
+
+    tag = "assembly"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    records = _assembly_records()
+    t_gen = time.perf_counter() - t0
+    lens = sorted((len(s) for _n, s in records), reverse=True)
+    t0 = time.perf_counter()
+    idx = build_index_native(records, IndexParams())
+    t_native = time.perf_counter() - t0
+    stages = nhost.last_build_stage_s()
+    t_device = _device_build_equal(tag, records, idx)
+    rids = np.unique(idx.positions >> np.uint64(32))
+    if rids.shape[0] != ASSEMBLY_CONTIGS:
+        raise AssertionError(f"[{tag}] positions on {rids.shape[0]} contigs")
+    print(f"{tag} set-up: {ASSEMBLY_BP} bp in {len(records)} contigs (longest "
+          f"{lens[:5]}, median {lens[len(lens) // 2]}, shortest {lens[-1]}), genome "
+          f"{t_gen:.1f} s; native index build {t_native:.3f} s (stages "
+          f"{json.dumps(stages)}); device index build {t_device:.3f} s on the card, all four "
+          f"arrays and the sequence table equal; {idx.keys.shape[0]} keys, "
+          f"{idx.positions.shape[0]} positions")
+    t0 = time.perf_counter()
+    mapper = Mapper.from_oracle_index(idx, cp, mp, device="cuda", batch_size=1024)
+    torch.cuda.synchronize()
+    t_upload = time.perf_counter() - t0
+    layout = _two_planes(tag, mapper, len(records))
+    print(f"{tag} device index: {t_upload:.1f} s (planner, tables, upload); layout "
+          f"{json.dumps(layout)}")
+    t0 = time.perf_counter()
+    short = _assembly_reads(records, ASSEMBLY_SHORT, (500, 1000), 0)
+    long_ = _assembly_reads(records, ASSEMBLY_LONG, (5000, 20000), 1)
+    print(f"{tag} reads: {len(short)} short, {len(long_)} long in "
+          f"{time.perf_counter() - t0:.1f} s")
+    if mapper._shapes_for(1024, 1)[1] != 256:
+        raise AssertionError(f"[{tag}] the 1024 bucket is not at A = 256")
+    counts: dict = {}  # this phase's launches, its own kernel rows
+    out = {}
+    for mix, reads, key in (("short", short, "chain_dp_aux/static"),
+                            ("long", long_, "chain_dp_aux/lane")):
+        lines, st, out[mix] = _map_mix(f"{tag} {mix}", mapper, reads, key, counts, idx, cp,
+                                       mp)
+        if st.get("host_reads", 0) >= 0.01 * len(reads):
+            raise AssertionError(f"[{tag} {mix}] host fallback on {st.get('host_reads')} reads")
+        if max(int(l.split("\t", 6)[5][3:]) for l in lines) < 64:
+            raise AssertionError(f"[{tag} {mix}] no PAF line on a contig id past 63")
+    _lookup_ms(tag, mapper, short)
+    cap_g, gcounts = _general_sample(tag, idx, mapper, short[::64] + long_[::64], cp, mp)
+    print(_peak_line(tag))
+    print(f"{tag} launches over the timed passes: lite {counts}, general sample {gcounts}")
+    return _phase_rows(tag, out, cap_g, counts, gcounts)
+
+
+# the chm13 phase: a human-sized reference in the shape of T2T-CHM13v2.0
+# (NCBI GCA_009914755.4): its 25 sequences, names and lengths in the
+# assembly's order, summing past 2^31 bases (so the length, not the count
+# of sequences, refuses the packed position plane); synthetic bases
+CHM13_SEQS = (
+    ("chr1", 248_387_328), ("chr2", 242_696_752), ("chr3", 201_105_948),
+    ("chr4", 193_574_945), ("chr5", 182_045_439), ("chr6", 172_126_628),
+    ("chr7", 160_567_428), ("chr8", 146_259_331), ("chr9", 150_617_247),
+    ("chr10", 134_758_134), ("chr11", 135_127_769), ("chr12", 133_324_548),
+    ("chr13", 113_566_686), ("chr14", 101_161_492), ("chr15", 99_753_195),
+    ("chr16", 96_330_374), ("chr17", 84_276_897), ("chr18", 80_542_538),
+    ("chr19", 61_707_364), ("chr20", 66_210_255), ("chr21", 45_090_682),
+    ("chr22", 51_324_926), ("chrX", 154_259_566), ("chrY", 62_460_029),
+    ("chrM", 16_569),
+)
+CHM13_BP = 3_117_292_070
+CHM13_SHORT = 16_384  # 500-1000 bp: the 1024 bucket at A = 256
+CHM13_LONG = 512      # 5-20 kb: the lane kernels, the wide pass and the 4x tier
+# the child's limit, from its start: its host set-up runs beside the kernel
+# rows (about 4 minutes), its card part after them (about 4 more)
+CHM13_TIMEOUT_S = 1000
+
+
+def chm13_lengths() -> list:
+    """[(name, length)] of the chm13 phase's sequences: T2T-CHM13v2.0's,
+    in order; the lengths sum to CHM13_BP."""
+    if sum(n for _s, n in CHM13_SEQS) != CHM13_BP:
+        raise AssertionError("the CHM13 lengths do not sum to CHM13_BP")
+    return list(CHM13_SEQS)
+
+
+def cut_records(genome: bytes, lengths) -> list:
+    """The genome cut in order into [(name, bases)] at `lengths`
+    [(name, length)], which must cover it exactly."""
+    if sum(n for _s, n in lengths) != len(genome):
+        raise ValueError(f"the lengths cover {sum(n for _s, n in lengths)} of "
+                         f"{len(genome)} bases")
+    out, off = [], 0
+    for name, n in lengths:
+        out.append((name, genome[off:off + n]))
+        off += n
+    return out
+
+
+def _meminfo_total() -> str:
+    with open("/proc/meminfo") as f:
+        return next(l.strip() for l in f if l.startswith("MemTotal"))
+
+
+def _chm13_phase(cp, mp, wait=None) -> list:
+    """The main path on a human-sized reference (chm13_lengths: CHM13_BP
+    bases in T2T-CHM13v2.0's 25 sequences), run in a process of its own
+    (`python3 chip_smoke.py --phase chm13`). On the host first:
+    random_genome(CHM13_BP, seed=11) cut at those lengths; the native
+    index build, timed; CHM13_SHORT reads of 500-1000 bp and CHM13_LONG
+    of 5-20 kb, simulated sequence by sequence; the .mmi written and read
+    back under a temporary directory, its arrays and sequence table equal
+    to the native build's (offsets past 2^31), the mapper to be made from
+    the index read back, as users run `minimap2 -d` then map. Then
+    wait() (the full run's go, once the card is free), and on the card:
+    the device index build, timed and equal; the layout (the two position
+    planes, refused by length alone) and table bytes; a captured lite
+    Mapper on both mixes (2 warm passes, 3 timed ones, replays only; the
+    short-read kernel, then the aux lane kernel), every 64th read of each
+    mix byte-identical to the oracle, the short mix on every nuclear
+    chromosome with CHM13's target lengths; the wire flags of each mix's
+    first pass and its host-fallback share (printed, not gated); the
+    general path on the sampled reads against the exact-window oracle;
+    the lookup stage's card time; the peak device memory and this
+    process's peak RSS. Returns the kernel rows (dicts), each held to its
+    plain version and counted over this phase's timed passes."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from minimap2_rs_torch.config import IndexParams
+    from minimap2_rs_torch.models.index_builder import build_index_native
+    from minimap2_rs_torch.models.mapper import Mapper
+    from minimap2_rs_torch.oracle.index import OracleIndex
+    from minimap2_rs_torch.runtime import host as nhost
+    from minimap2_rs_torch.utils.seqsim import random_genome
+
+    tag = "chm13"
+    lengths = chm13_lengths()
+    print(f"{tag} machine: {_meminfo_total()}; {nvidia_smi()}; "
+          f"{torch.cuda.get_device_properties(0).total_memory} bytes of device memory")
+    t0 = time.perf_counter()
+    records = cut_records(random_genome(CHM13_BP, seed=11), lengths)
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    idx = build_index_native(records, IndexParams())
+    t_native = time.perf_counter() - t0
+    stages = nhost.last_build_stage_s()
+    print(f"{tag} set-up: {CHM13_BP} bp in {len(records)} sequences (longest "
+          f"{max(n for _s, n in lengths)}, shortest {min(n for _s, n in lengths)}), genome "
+          f"{t_gen:.1f} s; native index build {t_native:.3f} s (stages "
+          f"{json.dumps(stages)}); {idx.keys.shape[0]} keys, {idx.positions.shape[0]} "
+          f"positions; {_peak_line(tag)}")
+    t0 = time.perf_counter()
+    short = _assembly_reads(records, CHM13_SHORT, (500, 1000), 0)
+    long_ = _assembly_reads(records, CHM13_LONG, (5000, 20000), 1)
+    print(f"{tag} reads: {len(short)} short, {len(long_)} long in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # the users' order: minimap2 -d ref.mmi, then map against ref.mmi
+    tmp_root = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    tmp_root.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=tmp_root) as tmp:
+        path = os.path.join(tmp, "chm13.mmi")
+        t0 = time.perf_counter()
+        idx.save_to_mmi(path)
+        t_save = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        loaded = OracleIndex.load_from_mmi(path)
+        t_load = time.perf_counter() - t0
+    for name in ("keys", "starts", "counts", "positions", "S"):
+        a, b = getattr(idx, name), getattr(loaded, name)
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise AssertionError(f"[{tag}] the .mmi read back differs on {name}")
+    seqs = [(q.name, q.offset, q.length) for q in idx.seq]
+    if ([(q.name, q.offset, q.length) for q in loaded.seq] != seqs
+            or (loaded.w, loaded.k, loaded.flag) != (idx.w, idx.k, idx.flag)):
+        raise AssertionError(f"[{tag}] the .mmi read back differs in its header")
+    offsets = np.concatenate([[0], np.cumsum([ln for _n, ln in lengths])[:-1]]).tolist()
+    if [(n, ln) for n, _o, ln in seqs] != lengths or [o for _n, o, _l in seqs] != offsets:
+        raise AssertionError(f"[{tag}] sequence table {seqs}")
+    print(f"{tag} .mmi round trip: {size} bytes written in {t_save:.1f} s, read back in "
+          f"{t_load:.1f} s, arrays and sequence table equal to the native build's (the last "
+          f"offset {seqs[-1][1]}); {_peak_line(tag)}")
+    # the index read back stands for the native build from here on
+    del idx
+    idx = loaded
+    if wait is not None:
+        t0 = time.perf_counter()
+        wait()
+        print(f"{tag}: the host set-up done, waited {time.perf_counter() - t0:.1f} s for the "
+              f"card")
+
+    torch.cuda.reset_peak_memory_stats()
+    t_device = _device_build_equal(tag, records, idx)
+    del records
+    print(f"{tag} device index build {t_device:.3f} s on the card, all four arrays and the "
+          f"sequence table equal; peak device memory {torch.cuda.max_memory_allocated()} bytes")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    t0 = time.perf_counter()
+    mapper = Mapper.from_oracle_index(idx, cp, mp, device="cuda", batch_size=1024)
+    torch.cuda.synchronize()
+    t_upload = time.perf_counter() - t0
+    layout = _two_planes(tag, mapper, len(lengths))
+    if len(idx.seq) > 64 or mapper.dev_idx.dm_slots:
+        raise AssertionError(f"[{tag}] {len(idx.seq)} sequences, direct table "
+                             f"{mapper.dev_idx.dm_slots}: not the layout of this phase")
+    print(f"{tag} device index: {t_upload:.1f} s (mid_occ, planner, tables, upload); "
+          f"packed plane refused by length alone ({len(idx.seq)} sequences <= 64, "
+          f"{sum(ln for _n, ln in lengths)} bases >= 2^31); layout {json.dumps(layout)}")
+    if mapper._shapes_for(1024, 1)[1] != 256:
+        raise AssertionError(f"[{tag}] the 1024 bucket is not at A = 256")
+    counts: dict = {}  # this phase's launches, its own kernel rows
+    out = {}
+    for mix, reads, key in (("short", short, "chain_dp_aux/static"),
+                            ("long", long_, "chain_dp_aux/lane")):
+        lines, _st, out[mix] = _map_mix(f"{tag} {mix}", mapper, reads, key, counts, idx, cp,
+                                        mp)
+        if mix == "short":
+            per: dict = {}
+            for l in lines:
+                f = l.split("\t", 7)
+                per.setdefault(f[5], set()).add(int(f[6]))
+            nuclear = [n for n, _ln in lengths if n != "chrM"]
+            if (any(per.get(n) != {ln} for n, ln in lengths if n in per)
+                    or not set(nuclear) <= set(per)):
+                raise AssertionError(f"[{tag} short] targets and lengths {per}")
+            print(f"{tag} short: PAF lines on all {len(nuclear)} nuclear chromosomes, each at "
+                  f"CHM13's length (chr1 {per['chr1']}); lines a target " + json.dumps(
+                      {n: sum(1 for l in lines if l.split("\t", 6)[5] == n) for n in per}))
+    _lookup_ms(tag, mapper, short)
+    cap_g, gcounts = _general_sample(tag, idx, mapper, short[::64] + long_[::64], cp, mp)
+    print(_peak_line(tag))
+    print(f"{tag} launches over the timed passes: lite {counts}, general sample {gcounts}")
+    tab = mapper._log2_tab
+    return [_kernel_row(*row, tab) for row in _phase_rows(tag, out, cap_g, counts, gcounts)]
+
+
+class _Chm13Child:
+    """The chm13 phase in a child process, so that its host memory is its
+    own. Made early, it does its host set-up (genome, native build, reads,
+    .mmi round trip) while this process times the kernels, then waits;
+    finish() lets it go on to the card, passes its output on, and returns
+    its kernel rows. A non-zero exit or CHM13_TIMEOUT_S fails the run;
+    leaving the `with` block kills a child still running."""
+
+    def __init__(self, rows_path: Path):
+        self.rows_path = rows_path
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--phase", "chm13", "--rows",
+             str(rows_path), "--wait"],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self.watchdog = threading.Timer(CHM13_TIMEOUT_S, self.proc.kill)
+        self.watchdog.start()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.watchdog.cancel()
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    def finish(self) -> list:
+        t_go = time.perf_counter()
+        try:
+            self.proc.stdin.write("go\n")
+            self.proc.stdin.close()
+        except BrokenPipeError:
+            pass  # it has ended already; its exit code says how
+        for line in self.proc.stdout:
+            print(line, end="")
+        rc = self.proc.wait()
+        if rc < 0:
+            raise RuntimeError(f"the chm13 phase was killed (signal {-rc}; its limit is "
+                               f"{CHM13_TIMEOUT_S} s)")
+        if rc:
+            raise RuntimeError(f"the chm13 phase exited {rc}")
+        print(f"chm13 phase {time.perf_counter() - self.t0:.1f} s in its process, "
+              f"{time.perf_counter() - t_go:.1f} s of it after the go")
+        return json.loads(self.rows_path.read_text())
+
+
+def _phase_main(phase: str, rows_path: Path | None, wait: bool) -> int:
+    """`--phase chm13`: the chm13 phase alone (the kernel library and the
+    native runtime built or loaded first); its kernel rows are written to
+    rows_path, or printed. `wait`: after its host set-up, wait for a line
+    "go" on the standard input (_Chm13Child)."""
+    import torch
+
+    from minimap2_rs_torch.config import ChainParams, MapParams
+    from minimap2_rs_torch.kernels import build as kbuild
+    from minimap2_rs_torch.runtime import host as nhost
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    if wait:
+        # its host set-up runs beside the parent's kernel timings: yield
+        # the cores to them (after the go it runs alone)
+        os.nice(10)
+    t0 = time.perf_counter()
+    kbuild.library()
+    if not nhost.native_available():
+        raise RuntimeError("the native host runtime did not build or load")
+    print(f"{phase} phase: kernel library and native host runtime ready in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    def go():
+        sys.stdout.flush()
+        if sys.stdin.readline().strip() != "go":
+            raise RuntimeError("the parent ended before the card was free")
+
+    rows = _chm13_phase(ChainParams.defaults_for_k(15), MapParams(), go if wait else None)
+    if "jax" in sys.modules:
+        raise AssertionError("jax was imported")
+    if rows_path is None:
+        for row in rows:
+            print(json.dumps(row))
+    else:
+        rows_path.write_text(json.dumps(rows))
+    sys.stdout.flush()
+    return 0
+
+
+class _Sections:
+    """The seconds of each section of a run: mark(name) closes the open
+    section and opens `name` (None: opens none)."""
+
+    def __init__(self, name: str):
+        self.s: dict = {}
+        self._name, self._t = name, time.perf_counter()
+
+    def mark(self, name) -> None:
+        now = time.perf_counter()
+        self.s[self._name] = round(now - self._t, 1)
+        self._name, self._t = name, now
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
+    ap.add_argument("--phase", choices=("chm13",),
+                    help="run this phase alone (the full run starts it as a child)")
+    ap.add_argument("--rows", type=Path, help="with --phase: write its kernel rows here")
+    ap.add_argument("--wait", action="store_true",
+                    help="with --phase: wait for 'go' on stdin before using the card")
+    args = ap.parse_args(argv)
+    if args.phase:
+        return _phase_main(args.phase, args.rows, args.wait)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
@@ -1403,6 +1850,7 @@ def main() -> int:
     from minimap2_rs_torch.utils.seqsim import random_genome, simulate_reads
 
     t_start = time.perf_counter()
+    sections = _Sections("build")
     card = nvidia_smi()
     print(card)
     nvcc = subprocess.run([kbuild._nvcc(), "--version"], capture_output=True,
@@ -1425,6 +1873,7 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
 
+    sections.mark("set-up")
     # ---- set-up: 5 Mbp index on the card, reads ---------------------
     cp = ChainParams.defaults_for_k(15)
     cp_gen = ChainParams.defaults_for_k(15, min_cnt=1, min_chain_score=10)
@@ -1463,6 +1912,7 @@ def main() -> int:
     reads_of = {"lite headline": reads, "lite long-read": lreads,
                 "general headline": reads, "general long-read": lreads}
 
+    sections.mark("lite headline")
     # ---- lite headline: 16,384 reads, 1 warm + 5 timed passes a path --
     lines, runs, cap_lite = _map_phase("lite headline", lite, reads, 5,
                                        ["chain_dp_aux/static"], total)
@@ -1482,6 +1932,7 @@ def main() -> int:
     print(f"lite headline parity vs oracle: {n_par} reads byte-identical")
     profile("lite headline", lite)
 
+    sections.mark("lite long reads")
     # ---- lite long reads: 64 reads of 5-20 kb --------------------------
     llines, _r, cap_llong = _map_phase("lite long-read", lite, lreads, 3,
                                        ["chain_dp_aux/lane"], total)
@@ -1489,12 +1940,13 @@ def main() -> int:
     print(f"lite long-read parity vs oracle: {n_par} reads byte-identical")
     profile("lite long-read", lite)
 
-    # ---- general headline: align -n 1 -m 10, 1 warm + 3 timed passes --
+    sections.mark("general headline")
+    # ---- general headline: align -n 1 -m 10, warm passes + 1 timed one --
     # the device DP scores the window exactly, so the gate is the oracle
     # with max_chain_skip past any window; agreement with the default
     # oracle is printed, not gated
     cp_exact = dataclasses.replace(cp_gen, max_chain_skip=1 << 30)
-    glines, gruns, cap_gen = _map_phase("general headline", general, reads, 3,
+    glines, gruns, cap_gen = _map_phase("general headline", general, reads, 1,
                                         ["chain_dp/static"], total)
     n_sec = _count_where(glines, _is_secondary)
     n_s2 = _count_where(glines, lambda l: _s2(l) > 0)
@@ -1528,6 +1980,7 @@ def main() -> int:
           f"exact-window oracle {resc_exact.n}, default oracle {resc_default.n}")
     profile("general headline", general)
 
+    sections.mark("general long reads")
     # ---- general long reads ----------------------------------------------
     gllines, _r, cap_glong = _map_phase("general long-read", general, lreads, 3,
                                         ["chain_dp/lane"], total)
@@ -1537,6 +1990,7 @@ def main() -> int:
           f"{_agree(idx, lreads, gllines, cp_gen, mp)} of {n_par} reads")
     profile("general long-read", general)
 
+    sections.mark("ont_10pct")
     # ---- ont_10pct: 256 reads of 1-2 kb at 10% error (bench.py:391-399) --
     r_ont = [(n, s) for n, s, *_ in simulate_reads(genome, 256, read_len=(1000, 2000),
                                                    error_rate=0.10, seed=19)]
@@ -1544,9 +1998,11 @@ def main() -> int:
     n_par = parity("ont_10pct", idx, r_ont, l_ont, cp, mp)
     print(f"ont_10pct parity vs oracle: {n_par} reads byte-identical, {len(l_ont)} PAF lines")
 
+    sections.mark("forced tiers")
     # ---- the 4x tier and the lazy wide pass, forced ------------------
     _forced_phases(cp, mp, total)
 
+    sections.mark("hifi_k19")
     # ---- hifi_k19: lite path at k=19 -----------------------------------
     t0 = time.perf_counter()
     g19 = random_genome(2_000_000, seed=11)
@@ -1562,6 +2018,7 @@ def main() -> int:
     n_par = parity("hifi_k19", idx19, r19, l19, cp19, mp)
     print(f"hifi_k19 parity vs oracle: {n_par} reads byte-identical, {len(l19)} PAF lines")
 
+    sections.mark("even_k14")
     # ---- even_k14: the exact-scan sketch through the window scan -------
     t0 = time.perf_counter()
     idx14 = build_index_native([("chrE", g19)], IndexParams(w=10, k=14))
@@ -1578,6 +2035,7 @@ def main() -> int:
     n_par = parity("even_k14", idx14, r14, l14, cp14, mp)
     print(f"even_k14 parity vs oracle: {n_par} reads byte-identical, {len(l14)} PAF lines")
 
+    sections.mark("hpc")
     # ---- hpc: an HPC index (queries stay non-HPC, seeds.rs:7-11) --------
     t0 = time.perf_counter()
     idx_hpc = build_index_native([("chrP", g19)], IndexParams(w=10, k=15, flag=1))
@@ -1588,6 +2046,7 @@ def main() -> int:
     n_par = parity("hpc", idx_hpc, r_hpc, l_hpc, cp, mp)
     print(f"hpc parity vs oracle: {n_par} reads byte-identical, {len(l_hpc)} PAF lines")
 
+    sections.mark("skipprune")
     # ---- skipprune: the pruned kernel instances, both paths -------------
     # held against the default oracle, which always prunes
     r_sp = reads[:128]
@@ -1606,6 +2065,7 @@ def main() -> int:
     print(f"skipprune parity vs the default oracle: lite {n_par}, general {n_gpar} reads "
           f"byte-identical ({len(l_sp)} and {len(gl_sp)} PAF lines)")
 
+    sections.mark("large")
     # ---- large: a 100 Mbp genome, 16,384 reads (bench.py:475-531) ---------
     t0 = time.perf_counter()
     big = random_genome(100_000_000, seed=7)
@@ -1630,14 +2090,19 @@ def main() -> int:
           f"lines")
     n_par = parity("large", idx_big, brl[::64], blines, cp, mp)
     print(f"large parity vs oracle: {n_par} reads byte-identical (every 64th)")
+    _lookup_ms("large", bmapper, brl)
     del bmapper, idx_big, big, brl, blines
 
+    sections.mark("assembly")
     # ---- assembly: 278,413,945 bp in 300 contigs, short and long mixes --
     t0 = time.perf_counter()
     assembly_rows = _assembly_phase(cp, mp)
     torch.cuda.empty_cache()
     print(f"assembly phase {time.perf_counter() - t0:.1f} s")
 
+    sections.mark("chm13")
+
+    sections.mark("device index build")
     # ---- device index build of the 5 Mbp genome ---------------------------
     for flag in (0, 1):
         params = IndexParams(flag=flag)
@@ -1654,6 +2119,7 @@ def main() -> int:
               f"(native build {t_native:.3f} s{'' if flag else ', timed at set-up'}); "
               f"{d_idx.keys.shape[0]} keys, all four arrays equal to the native build")
 
+    sections.mark("CLI")
     # ---- CLI: index, then anchors / chain, device against host ----------
     cli_dir = Path(__file__).resolve().parent / "build" / "chip_smoke"
     cli_dir.mkdir(parents=True, exist_ok=True)
@@ -1690,6 +2156,7 @@ def main() -> int:
         raise AssertionError("[CLI] chain --engine device never launched chain_dp_prune")
     print(f"CLI kernel launches: {cli_launches}")
 
+    sections.mark("extension")
     # ---- extension: 64 random pairs, on the card against the CPU ----------
     from minimap2_rs_torch.ops import extend_ops
 
@@ -1710,11 +2177,14 @@ def main() -> int:
         print(f"extension {fn.__name__}: 64 pairs, card == CPU; first scores "
               f"{got[0][:4].tolist()}")
 
+    sections.mark("bench")
     # ---- bench_torch.py at a cut size (before any process group exists) --
     _bench_phase()
+    sections.mark("prof")
     # ---- the measuring scripts at a cut size (before any process group) --
     _prof_phase()
 
+    sections.mark("mesh")
     # ---- the multi-GPU mapper: a 1-rank NCCL mesh, the CLI, 2 gloo ranks --
     cap_mesh_dp, n_mesh_dp = _mesh_dp_phase(idx, cp, mp, reads, lines, mapper, runs,
                                             trace_dir)
@@ -1723,77 +2193,87 @@ def main() -> int:
     print(f"main-path launches per kernel/shape, the single-device phases: {total}; "
           f"mesh dp: {n_mesh_dp}; mesh sharded (both ranks): {n_mesh_sh}")
 
-    # ---- kernels against their plain versions --------------------------
-    # on the inputs each path's warm pass gave its kernel, every band and
-    # anchor capacity it ran (hifi_k19's beside the lite headline's); the
-    # dynamic-window shape (A < 1024, window < A), which no mapper path
-    # launches, on the same inputs at window 128
-    tab = mapper._log2_tab
-    if not torch.equal(tab, m19._log2_tab):
-        raise AssertionError("the k=15 and k=19 mappers built different log2 tables")
-    cap_lite = {**cap_19, **cap_lite}  # the headline's entries win a clash
-    kernels = []
-    rows = [
-        ("chain_dp_aux (lite headline, hifi_k19)", 291, cap_lite, "chain_dp_aux/static",
-         None, 5),
-        ("chain_dp_aux (lite long reads)", 553, cap_llong, "chain_dp_aux/lane", None, 1),
-        ("chain_dp_aux (window 128)", 429, cap_lite, "chain_dp_aux/static", 128, 5),
-        ("chain_dp (general headline)", 290, cap_gen, "chain_dp/static", None, 5),
-        ("chain_dp (general long reads)", 552, cap_glong, "chain_dp/lane", None, 1),
-        ("chain_dp (window 128)", 428, cap_gen, "chain_dp/static", 128, 5),
-        ("chain_dp_aux_prune (skipprune lite)", None, cap_sp, "chain_dp_aux_prune/static",
-         None, 1),
-        ("chain_dp_prune (skipprune general)", None, cap_gsp, "chain_dp_prune/static",
-         None, 1),
-        ("chain_dp_prune (CLI chain)", None, cap_cli, "chain_dp_prune/lane", None, 1),
-    ]
-    # the single-device rows count their launches over every single-device
-    # phase but the assembly; the mesh and assembly rows over their own
-    # phase's timed passes
-    rows = [(*r, total) for r in rows] + [
-        ("chain_dp_aux (mesh dp, NCCL 1 rank)", 291, cap_mesh_dp, "chain_dp_aux/static",
-         None, 5, n_mesh_dp),
-        ("chain_dp_aux (mesh sharded, 2 gloo ranks)", 291, cap_mesh_sh,
-         "chain_dp_aux/static", None, 5, n_mesh_sh),
-        ("chain_dp_aux (mesh sharded long reads, 2 gloo ranks)", 553, cap_mesh_sh,
-         "chain_dp_aux/lane", None, 1, n_mesh_sh),
-    ] + assembly_rows
-    for row in rows:
-        kernels.append(_kernel_row(*row, tab))
+    # ---- chm13: 3,117,292,070 bp in 25 sequences, in a child process; its
+    # host set-up runs beside the kernel rows and the synthetic phase, which
+    # time on the card, and its card part after them --------------------
+    with _Chm13Child(trace_dir / "chm13_rows.json") as chm13:
+        sections.mark("kernel rows")
+        # ---- kernels against their plain versions --------------------------
+        # on the inputs each path's warm pass gave its kernel, every band and
+        # anchor capacity it ran (hifi_k19's beside the lite headline's); the
+        # dynamic-window shape (A < 1024, window < A), which no mapper path
+        # launches, on the same inputs at window 128
+        tab = mapper._log2_tab
+        if not torch.equal(tab, m19._log2_tab):
+            raise AssertionError("the k=15 and k=19 mappers built different log2 tables")
+        cap_lite = {**cap_19, **cap_lite}  # the headline's entries win a clash
+        kernels = []
+        rows = [
+            ("chain_dp_aux (lite headline, hifi_k19)", 291, cap_lite, "chain_dp_aux/static",
+             None, 5),
+            ("chain_dp_aux (lite long reads)", 553, cap_llong, "chain_dp_aux/lane", None, 1),
+            ("chain_dp_aux (window 128)", 429, cap_lite, "chain_dp_aux/static", 128, 5),
+            ("chain_dp (general headline)", 290, cap_gen, "chain_dp/static", None, 5),
+            ("chain_dp (general long reads)", 552, cap_glong, "chain_dp/lane", None, 1),
+            ("chain_dp (window 128)", 428, cap_gen, "chain_dp/static", 128, 5),
+            ("chain_dp_aux_prune (skipprune lite)", None, cap_sp, "chain_dp_aux_prune/static",
+             None, 1),
+            ("chain_dp_prune (skipprune general)", None, cap_gsp, "chain_dp_prune/static",
+             None, 1),
+            ("chain_dp_prune (CLI chain)", None, cap_cli, "chain_dp_prune/lane", None, 1),
+        ]
+        # the single-device rows count their launches over every single-device
+        # phase but the assembly; the mesh and assembly rows over their own
+        # phase's timed passes
+        rows = [(*r, total) for r in rows] + [
+            ("chain_dp_aux (mesh dp, NCCL 1 rank)", 291, cap_mesh_dp, "chain_dp_aux/static",
+             None, 5, n_mesh_dp),
+            ("chain_dp_aux (mesh sharded, 2 gloo ranks)", 291, cap_mesh_sh,
+             "chain_dp_aux/static", None, 5, n_mesh_sh),
+            ("chain_dp_aux (mesh sharded long reads, 2 gloo ranks)", 553, cap_mesh_sh,
+             "chain_dp_aux/lane", None, 1, n_mesh_sh),
+        ] + assembly_rows
+        for row in rows:
+            kernels.append(_kernel_row(*row, tab))
 
-    # the window scan: every short entry whole, the long ones on 8 rows
-    for cls, max_rows in (("short", None), ("long", 8)):
-        key = f"window_scan/{cls}"
-        entries = _launched(cap_14, key)
-        ms, card_ms, prev_ms, plain_ms, args = _scan_vs_plain(entries, max_rows)
-        timed = tuple(args[0].shape)
-        bound_ms, bound_by = scan_bound(args)
-        shapes = [(tuple(a[0][:max_rows].shape), w, k) for a, w, k in entries]
-        print(f"window_scan ({cls}): (B, L), w, k = {shapes}, all equal (both designs); "
-              f"timed at {timed}: kernel {ms:.4f} ms (device time {card_ms:.4f} ms), "
-              f"prev_design_ms (sequential) {prev_ms:.4f}, plain {plain_ms:.4f} ms, bound "
-              f"{bound_ms:.6f} ms ({bound_by}); launches x (ms - bound) = "
-              f"{total.get(key, 0) * (ms - bound_ms):.4f} ms")
-        kernels.append(dict(
-            name=f"window_scan (even_k14 {cls} reads)", route="cuda",
-            source="minimap2_rs_torch/csrc/window_scan.cu",
-            replaces="minimap2_rs_tpu/ops/sketch_scan.py:110",
-            launches=total.get(key, 0), max_abs_err=0, ms=ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-            library_note=LIBRARY_NOTE, design="tile", prev_design_ms=prev_ms,
-            device_ms=card_ms,
-            shape=cls, timed_at=timed, on_main_path=total.get(key, 0) > 0,
-        ))
+        # the window scan: every short entry whole, the long ones on 8 rows
+        for cls, max_rows in (("short", None), ("long", 8)):
+            key = f"window_scan/{cls}"
+            entries = _launched(cap_14, key)
+            ms, card_ms, prev_ms, plain_ms, args = _scan_vs_plain(entries, max_rows)
+            timed = tuple(args[0].shape)
+            bound_ms, bound_by = scan_bound(args)
+            shapes = [(tuple(a[0][:max_rows].shape), w, k) for a, w, k in entries]
+            print(f"window_scan ({cls}): (B, L), w, k = {shapes}, all equal (both designs); "
+                  f"timed at {timed}: kernel {ms:.4f} ms (device time {card_ms:.4f} ms), "
+                  f"prev_design_ms (sequential) {prev_ms:.4f}, plain {plain_ms:.4f} ms, bound "
+                  f"{bound_ms:.6f} ms ({bound_by}); launches x (ms - bound) = "
+                  f"{total.get(key, 0) * (ms - bound_ms):.4f} ms")
+            kernels.append(dict(
+                name=f"window_scan (even_k14 {cls} reads)", route="cuda",
+                source="minimap2_rs_torch/csrc/window_scan.cu",
+                replaces="minimap2_rs_tpu/ops/sketch_scan.py:110",
+                launches=total.get(key, 0), max_abs_err=0, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                library_note=LIBRARY_NOTE, design="tile", prev_design_ms=prev_ms,
+                device_ms=card_ms,
+                shape=cls, timed_at=timed, on_main_path=total.get(key, 0) > 0,
+            ))
 
-    # ---- the lane, short-read and pruned kernels on synthetic edge cases --
-    t0 = time.perf_counter()
-    for want_design, cases in _synthetic_cases().items():
-        _synthetic_phase(tab, want_design, cases)
-    print(f"synthetic phase {time.perf_counter() - t0:.1f} s")
+        sections.mark("synthetic")
+        # ---- the lane, short-read and pruned kernels on synthetic edge cases --
+        t0 = time.perf_counter()
+        for want_design, cases in _synthetic_cases().items():
+            _synthetic_phase(tab, want_design, cases)
+        print(f"synthetic phase {time.perf_counter() - t0:.1f} s")
+        sections.mark("chm13")
+        kernels += chm13.finish()
 
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     torch.distributed.destroy_process_group()
+    sections.mark(None)
+    print(f"seconds of each section: {json.dumps(sections.s)}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -71,6 +71,7 @@ def build_index_device(
         seqs.append(SeqMeta(name=name, offset=off, length=len(s)))
         off += len(s)
     codes = np.concatenate([c for _, c in recs]) if recs else np.zeros(0, np.uint8)
+    del recs
     fkeys, starts, counts, positions = _flatten(keys, rps, presorted=True)
     return OracleIndex(
         w=params.w, k=params.k, b=params.bucket_bits, flag=params.flag,

@@ -91,7 +91,7 @@ class DeviceIndex:
         if seq_lens is not None:
             cum = np.zeros(len(seq_lens) + 1, dtype=np.int64)
             np.cumsum(np.asarray(seq_lens, dtype=np.int64), out=cum[1:])
-        pos_packed = (
+        pos_packed = bool(
             cum is not None and cum[-1] < (1 << 31) and len(cum) - 1 <= 64
         )
         if pos_packed:

@@ -114,40 +114,12 @@ class OracleIndex:
                 f.write(name)
                 f.write(np.uint32(s.length).tobytes())
                 sum_len += s.length
-            # bucket regrouping: stable sort by bucket keeps keys ascending
-            bmask = np.uint64((1 << self.b) - 1)
-            buckets = (self.keys & bmask).astype(np.int64)
-            order = np.argsort(buckets, kind="stable")
-            nb = 1 << self.b
-            bucket_starts = np.searchsorted(buckets[order], np.arange(nb + 1))
-            for bi in range(nb):
-                sel = order[bucket_starts[bi] : bucket_starts[bi + 1]]
-                multi = sel[self.counts[sel] > 1]
-                # p = concatenated multi-occurrence blocks, key-ascending
-                blocks = [
-                    self.positions[self.starts[u] : self.starts[u] + self.counts[u]]
-                    for u in multi
-                ]
-                p = np.concatenate(blocks) if blocks else np.zeros(0, dtype=np.uint64)
+            for sel in self._buckets():
+                p, pairs = self._bucket_records(sel)
                 f.write(np.uint32(p.shape[0]).tobytes())
-                f.write(p.astype("<u8").tobytes())
-                f.write(np.uint32(sel.shape[0]).tobytes())
-                if sel.shape[0]:
-                    hkeys = ((self.keys[sel] >> np.uint64(self.b)) << np.uint64(1))
-                    single = self.counts[sel] == 1
-                    hkeys = hkeys | single.astype(np.uint64)
-                    start_p = np.zeros(sel.shape[0], dtype=np.uint64)
-                    cnts = self.counts[sel].astype(np.uint64)
-                    np.cumsum(np.where(single, 0, cnts)[:-1], out=start_p[1:])
-                    vals = np.where(
-                        single,
-                        self.positions[self.starts[sel]],
-                        (start_p << np.uint64(32)) | cnts,
-                    )
-                    pairs = np.empty(sel.shape[0] * 2, dtype="<u8")
-                    pairs[0::2] = hkeys
-                    pairs[1::2] = vals
-                    f.write(pairs.tobytes())
+                f.write(p.tobytes())
+                f.write(np.uint32(pairs.shape[0] // 2).tobytes())
+                f.write(pairs.tobytes())
             words = (sum_len + 7) // 8
             f.write(self.S[:words].astype("<u4").tobytes())
 
@@ -173,45 +145,57 @@ class OracleIndex:
             off += 4
             seqs.append(SeqMeta(name=name, offset=sum_len, length=ln))
             sum_len += ln
-        all_keys: list[np.ndarray] = []
-        all_pos: list[np.ndarray] = []
-        nb = 1 << int(b)
-        for bi in range(nb):
+        blocks = []
+        for bi in range(1 << int(b)):
             n = int(np.frombuffer(data, dtype="<u4", count=1, offset=off)[0])
             off += 4
-            p = np.frombuffer(data, dtype="<u8", count=n, offset=off).copy()
+            p = np.frombuffer(data, dtype="<u8", count=n, offset=off)
             off += 8 * n
             size = int(np.frombuffer(data, dtype="<u4", count=1, offset=off)[0])
             off += 4
-            if size:
-                pairs = np.frombuffer(data, dtype="<u8", count=2 * size, offset=off)
-                off += 16 * size
-                hkeys, vals = pairs[0::2], pairs[1::2]
-                full = ((hkeys >> np.uint64(1)) << np.uint64(b)) | np.uint64(bi)
-                single = (hkeys & np.uint64(1)) == 1
-                cnts = np.where(single, 1, vals & np.uint64(0xFFFFFFFF)).astype(np.int64)
-                p_off = np.where(single, 0, vals >> np.uint64(32)).astype(np.int64)
-                all_keys.append(np.repeat(full, cnts))
-                pos = np.empty(int(cnts.sum()), dtype=np.uint64)
-                o = 0
-                for j in range(size):
-                    c = int(cnts[j])
-                    if single[j]:
-                        pos[o] = vals[j]
-                    else:
-                        pos[o : o + c] = p[p_off[j] : p_off[j] + c]
-                    o += c
-                all_pos.append(pos)
+            pairs = np.frombuffer(data, dtype="<u8", count=2 * size, offset=off)
+            off += 16 * size
+            blocks.append(_bucket_blocks(p, pairs, int(b), bi))
         words = (sum_len + 7) // 8
         S = np.frombuffer(data, dtype="<u4", count=words, offset=off).copy()
-        mkeys = np.concatenate(all_keys) if all_keys else np.zeros(0, dtype=np.uint64)
-        mpos = np.concatenate(all_pos) if all_pos else np.zeros(0, dtype=np.uint64)
-        keys, starts, counts, positions = _flatten(mkeys, mpos)
+        del data
+        keys, starts, counts, positions = _flatten_blocks(blocks)
         return OracleIndex(
             w=int(w), k=int(k), b=int(b), flag=int(flag), n_seq=int(n_seq),
             seq=seqs, S=S, keys=keys, starts=starts, counts=counts,
             positions=positions,
         )
+
+    def _buckets(self) -> list:
+        """The keys of each of the 2^b buckets (low b key bits), as
+        indexes in ascending key order: a stable sort by bucket keeps the
+        keys ascending (on 16-bit bucket ids, numpy's radix sort)."""
+        bmask = np.uint64((1 << self.b) - 1)
+        buckets = (self.keys & bmask).astype(np.uint16 if self.b <= 16 else np.int64)
+        order = np.argsort(buckets, kind="stable")
+        bounds = np.searchsorted(buckets[order], np.arange((1 << self.b) + 1))
+        return [order[bounds[bi]:bounds[bi + 1]] for bi in range(1 << self.b)]
+
+    def _bucket_records(self, sel: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """One bucket's on-disk arrays, for the keys `sel` (ascending):
+        p, the concatenated position blocks of its multi-occurrence keys
+        ("<u8"), and the interleaved (hash key, value) pairs ("<u8"), a
+        single-occurrence key's value its position, a multi one's
+        p offset << 32 | count (index.rs:245-290)."""
+        counts = self.counts[sel]
+        multi = counts > 1
+        p = self.positions[_block_rows(self.starts[sel[multi]], counts[multi])]
+        single = ~multi
+        hkeys = ((self.keys[sel] >> np.uint64(self.b)) << np.uint64(1)) | single.astype(np.uint64)
+        start_p = np.zeros(sel.shape[0], dtype=np.uint64)
+        cnts = counts.astype(np.uint64)
+        np.cumsum(np.where(single, 0, cnts)[:-1], out=start_p[1:])
+        vals = np.where(single, self.positions[self.starts[sel]],
+                        (start_p << np.uint64(32)) | cnts)
+        pairs = np.empty(sel.shape[0] * 2, dtype="<u8")
+        pairs[0::2] = hkeys
+        pairs[1::2] = vals
+        return p.astype("<u8"), pairs
 
     # ---- serialization: native MM2RSIDX -------------------------------
 
@@ -234,40 +218,14 @@ class OracleIndex:
                 f.write(bytes([1 if s.is_alt else 0]))
             f.write(np.uint64(self.S.shape[0]).tobytes())
             f.write(self.S.astype("<u4").tobytes())
-            # buckets
-            bmask = np.uint64((1 << self.b) - 1)
-            buckets = (self.keys & bmask).astype(np.int64)
-            order = np.argsort(buckets, kind="stable")
-            nb = 1 << self.b
-            f.write(np.uint32(nb).tobytes())
-            bucket_starts = np.searchsorted(buckets[order], np.arange(nb + 1))
-            for bi in range(nb):
-                sel = order[bucket_starts[bi] : bucket_starts[bi + 1]]
-                multi = sel[self.counts[sel] > 1]
-                blocks = [
-                    self.positions[self.starts[u] : self.starts[u] + self.counts[u]]
-                    for u in multi
-                ]
-                p = np.concatenate(blocks) if blocks else np.zeros(0, dtype=np.uint64)
+            f.write(np.uint32(1 << self.b).tobytes())
+            for sel in self._buckets():
+                p, pairs = self._bucket_records(sel)
                 f.write(np.uint64(p.shape[0]).tobytes())
-                f.write(p.astype("<u8").tobytes())
+                f.write(p.tobytes())
                 f.write(bytes([1 if sel.shape[0] else 0]))
                 if sel.shape[0]:
                     f.write(np.uint64(sel.shape[0]).tobytes())
-                    hkeys = ((self.keys[sel] >> np.uint64(self.b)) << np.uint64(1))
-                    single = self.counts[sel] == 1
-                    hkeys = hkeys | single.astype(np.uint64)
-                    start_p = np.zeros(sel.shape[0], dtype=np.uint64)
-                    cnts = self.counts[sel].astype(np.uint64)
-                    np.cumsum(np.where(single, 0, cnts)[:-1], out=start_p[1:])
-                    vals = np.where(
-                        single,
-                        self.positions[self.starts[sel]],
-                        (start_p << np.uint64(32)) | cnts,
-                    )
-                    pairs = np.empty(sel.shape[0] * 2, dtype="<u8")
-                    pairs[0::2] = hkeys
-                    pairs[1::2] = vals
                     f.write(pairs.tobytes())
 
     @staticmethod
@@ -309,13 +267,11 @@ class OracleIndex:
         off += 4 * s_words
         nb = int(np.frombuffer(data, dtype="<u4", count=1, offset=off)[0])
         off += 4
-        b_bits = int(b)
-        all_keys: list[np.ndarray] = []
-        all_pos: list[np.ndarray] = []
+        blocks = []
         for bi in range(nb):
             p_len = int(np.frombuffer(data, dtype="<u8", count=1, offset=off)[0])
             off += 8
-            p = np.frombuffer(data, dtype="<u8", count=p_len, offset=off).copy()
+            p = np.frombuffer(data, dtype="<u8", count=p_len, offset=off)
             off += 8 * p_len
             has_h = data[off] != 0
             off += 1
@@ -324,30 +280,66 @@ class OracleIndex:
                 off += 8
                 pairs = np.frombuffer(data, dtype="<u8", count=2 * h_len, offset=off)
                 off += 16 * h_len
-                hkeys, vals = pairs[0::2], pairs[1::2]
-                full = ((hkeys >> np.uint64(1)) << np.uint64(b_bits)) | np.uint64(bi)
-                single = (hkeys & np.uint64(1)) == 1
-                cnts = np.where(single, 1, vals & np.uint64(0xFFFFFFFF)).astype(np.int64)
-                p_off = np.where(single, 0, vals >> np.uint64(32)).astype(np.int64)
-                all_keys.append(np.repeat(full, cnts))
-                pos = np.empty(int(cnts.sum()), dtype=np.uint64)
-                o = 0
-                for j in range(h_len):
-                    c = int(cnts[j])
-                    if single[j]:
-                        pos[o] = vals[j]
-                    else:
-                        pos[o : o + c] = p[p_off[j] : p_off[j] + c]
-                    o += c
-                all_pos.append(pos)
-        mkeys = np.concatenate(all_keys) if all_keys else np.zeros(0, dtype=np.uint64)
-        mpos = np.concatenate(all_pos) if all_pos else np.zeros(0, dtype=np.uint64)
-        keys, starts, counts, positions = _flatten(mkeys, mpos)
+                blocks.append(_bucket_blocks(p, pairs, int(b), bi))
+        del data
+        keys, starts, counts, positions = _flatten_blocks(blocks)
         return OracleIndex(
             w=int(w), k=int(k), b=int(b), flag=int(flag), n_seq=n_seq_decl,
             seq=seqs, S=S, keys=keys, starts=starts, counts=counts,
             positions=positions,
         )
+
+
+def _block_rows(starts: np.ndarray, counts: np.ndarray) -> np.ndarray:
+    """Row indexes of the blocks [starts[i], starts[i] + counts[i]) laid
+    end to end (int64)."""
+    counts = counts.astype(np.int64)
+    off = np.zeros(counts.shape[0] + 1, dtype=np.int64)
+    np.cumsum(counts, out=off[1:])
+    return np.repeat(starts.astype(np.int64) - off[:-1], counts) + np.arange(
+        off[-1], dtype=np.int64)
+
+
+def _bucket_blocks(p: np.ndarray, pairs: np.ndarray, b: int, bi: int):
+    """One bucket of an index file read back (index.rs:376-410): its full
+    keys in file order, each key's occurrence count, and the positions of
+    every key laid end to end in that order (a single-occurrence key's
+    is its value, a multi one's the block of p its value addresses)."""
+    hkeys, vals = pairs[0::2], pairs[1::2]
+    full = ((hkeys >> np.uint64(1)) << np.uint64(b)) | np.uint64(bi)
+    single = (hkeys & np.uint64(1)) == 1
+    cnts = np.where(single, 1, vals & np.uint64(0xFFFFFFFF)).astype(np.int64)
+    src_start = np.where(single, 0, vals >> np.uint64(32)).astype(np.int64)
+    # the singles' values go after p, so one gather reads every block
+    src_start[single] = p.shape[0] + np.arange(int(single.sum()), dtype=np.int64)
+    src = np.concatenate([p, vals[single]])
+    return full, cnts, src[_block_rows(src_start, cnts)]
+
+
+def _flatten_blocks(blocks: list):
+    """_flatten of the pairs that index-file buckets hold, as
+    [(keys, counts, positions laid end to end)]. Where the keys are
+    distinct and each key's positions ascend (every file this module,
+    the reference or C minimap2 writes: index.rs:98), one sort of the
+    keys orders the blocks; otherwise the pairs are sorted whole. Empties
+    `blocks` as it goes, so that a large index is held once."""
+    bkeys = np.concatenate([k for k, _c, _p in blocks]) if blocks else np.zeros(0, np.uint64)
+    bcounts = np.concatenate([c for _k, c, _p in blocks]) if blocks else np.zeros(0, np.int64)
+    bpos = np.concatenate([p for _k, _c, p in blocks]) if blocks else np.zeros(0, np.uint64)
+    del blocks[:]
+    order = np.argsort(bkeys)
+    keys, counts = bkeys[order], bcounts[order]
+    if keys.shape[0] and (keys[1:] != keys[:-1]).all() and (counts > 0).all():
+        src = np.zeros(bcounts.shape[0], dtype=np.int64)
+        np.cumsum(bcounts[:-1], out=src[1:])
+        positions = bpos[_block_rows(src[order], counts)]
+        starts = np.zeros(counts.shape[0], dtype=np.int64)
+        np.cumsum(counts[:-1], out=starts[1:])
+        ascend = positions[1:] >= positions[:-1]
+        ascend[starts[1:] - 1] = True  # across a block boundary
+        if ascend.all():
+            return keys, starts, counts, positions
+    return _flatten(np.repeat(bkeys, bcounts), bpos)
 
 
 def _flatten(mkeys: np.ndarray, mpos: np.ndarray, presorted: bool = False):

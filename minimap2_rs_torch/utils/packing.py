@@ -36,12 +36,13 @@ def seq4_pack(codes: np.ndarray, total_words: int | None = None) -> np.ndarray:
     words = (n + 7) // 8
     if total_words is None:
         total_words = words
-    padded = np.zeros(words * 8, dtype=np.uint32)
-    padded[:n] = codes.astype(np.uint32)
-    nibbles = padded.reshape(words, 8)
-    shifts = (np.arange(8, dtype=np.uint32) * 4)[None, :]
+    padded = np.zeros(words * 8, dtype=np.uint8)
+    padded[:n] = codes
+    # two bases a byte, the even one in the low nibble, and four bytes a
+    # little-endian word: base o lands at nibble o & 7 of word o >> 3, in
+    # about a byte and a half per base of working memory
     out = np.zeros(total_words, dtype=np.uint32)
-    out[:words] = np.bitwise_or.reduce(nibbles << shifts, axis=1)
+    out[:words] = (padded[0::2] | (padded[1::2] << np.uint8(4))).view("<u4")
     return out
 
 

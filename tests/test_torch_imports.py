@@ -20,7 +20,7 @@ torch.set_num_threads(2)
 ROOT = Path(__file__).resolve().parent.parent
 # the port's root scripts, each the counterpart of a JAX script
 SCRIPTS = ("bench_torch", "prof_pipeline_torch", "prof_longread_torch",
-           "prof_longread_stages_torch", "scaling_bench_torch")
+           "prof_longread_stages_torch", "scaling_bench_torch", "index_build_ab")
 
 
 def test_port_imports_no_jax():
