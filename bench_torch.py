@@ -332,7 +332,7 @@ def stage_ms_per_call(mapper: Mapper, reads, bucket: int) -> dict:
             program_key(_fused_map_stage_lite, host_in, statics))
         if prog is None:
             raise AssertionError(f"the mapper holds no captured program for bucket {bucket}")
-        out["full_call"] = device_ms(prog.graph.replay)
+        out["full_call"] = device_ms(prog.replay)
     return out
 
 

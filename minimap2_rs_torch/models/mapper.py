@@ -40,7 +40,6 @@ import dataclasses
 import os
 import queue
 import threading
-import time
 
 import numpy as np
 import torch
@@ -64,11 +63,22 @@ from ..runtime.host import (
     native_postprocess,
 )
 from ..utils.packing import nt4_encode
-from .programs import COUNTERS, ProgramCache, run_eager
+from ..utils.measure import window_pairs
+from ..utils.profiling import span
+from .programs import (
+    COUNTERS,
+    Clock,
+    ProgramCache,
+    idle_split,
+    named,
+    run_eager,
+    staged,
+)
 from .stages import (
     chain_finalize_lite,
     chain_inputs,
-    sketch_to_anchors,
+    lookup_expand,
+    sketch_compact_filter,
     unpack_codes2,
     unpack_codes4,
 )
@@ -128,6 +138,53 @@ def _codes_from_wire(codes, lengths, nex, wire: str) -> torch.Tensor:
     return codes
 
 
+def _sketch_stage(codes, lengths, nex, *, wire: str, w: int, k: int, q_occ_max: int,
+                  q_occ_frac: float, M: int, **_) -> dict:
+    """Stage "sketch" of the map programs: wire unpack through
+    sketch_compact_filter; the minimizers, and the lengths for the
+    stages after it."""
+    mini = sketch_compact_filter(_codes_from_wire(codes, lengths, nex, wire), lengths,
+                                 w=w, k=k, q_occ_max=q_occ_max, q_occ_frac=q_occ_frac, M=M)
+    return dict(mini, lengths=lengths)
+
+
+def _anchors_stage(mini: dict, *, dev_idx: DeviceIndex, mid_occ: int, A: int, **_) -> dict:
+    """Stage "anchors": lookup_expand (sketch_to_anchors' second half);
+    the anchors with the minimizers' cps, n_mini, mini_ovf and the
+    lengths."""
+    anc = lookup_expand(dev_idx, mini, mini["lengths"], mid_occ, A)
+    anc.update({c: mini[c] for c in ("cps", "n_mini", "mini_ovf", "lengths")})
+    return anc
+
+
+def _lite_chain_stage(anc: dict, *, scalars: ChainScalars, scalars_wide: ChainScalars,
+                      tlens: torch.Tensor, rmq_rescue_size: int, rmq_rescue_ratio: float,
+                      k: int, window: int, log2_tab: torch.Tensor, flag_window_ovf: bool,
+                      wide: bool, max_chain_skip: int | None = None, **_) -> torch.Tensor:
+    """Stage "chain" of the lite program: chain_finalize_lite."""
+    return chain_finalize_lite(
+        anc, anc["lengths"], scalars, scalars_wide, tlens,
+        rmq_rescue_size, rmq_rescue_ratio,
+        k=k, window=window, log2_tab=log2_tab,
+        flag_window_ovf=flag_window_ovf, max_chain_skip=max_chain_skip, wide=wide,
+    )
+
+
+def _chain_stage(anc: dict, *, scalars: ChainScalars, window: int, log2_tab: torch.Tensor,
+                 max_chain_skip: int | None = None, **_) -> torch.Tensor:
+    """Stage "chain" of the general program: the (f, prev) chain DP,
+    packed with the anchors and minimizers into one buffer."""
+    f, prev = chain_dp_batch(
+        *chain_inputs(anc["x_hi"], anc["x_lo"], anc["y_hi"], anc["y_lo"]),
+        scalars, window, log2_tab, max_chain_skip,
+    )
+    words = [as_i32(anc[c]) for c in ("x_hi", "x_lo", "y_hi", "y_lo")]
+    flags = [anc[c].to(torch.int32)[:, None]
+             for c in ("n_mini", "n_anchors", "mini_ovf", "anc_ovf")]
+    return torch.cat(words + [f, prev, as_i32(anc["cps"])] + flags, dim=1)
+
+
+@staged(("sketch", _sketch_stage), ("anchors", _anchors_stage), ("chain", _lite_chain_stage))
 def _fused_map_stage_lite(
     codes: torch.Tensor,
     lengths: torch.Tensor,
@@ -148,20 +205,10 @@ def _fused_map_stage_lite(
 ) -> torch.Tensor:
     """The whole per-batch device pipeline (JAX _fused_map_stage_lite,
     mapper.py:160-219) on one batch's wire, lengths and N list; returns
-    the (B, 10) int32 wire rows."""
-    codes = _codes_from_wire(codes, lengths, nex, wire)
-    anc = sketch_to_anchors(
-        dev_idx, codes, lengths, mid_occ, w=w, k=k,
-        q_occ_max=q_occ_max, q_occ_frac=q_occ_frac, M=M, A=A,
-    )
-    return chain_finalize_lite(
-        anc, lengths, scalars, scalars_wide, tlens,
-        rmq_rescue_size, rmq_rescue_ratio,
-        k=k, window=window, log2_tab=log2_tab,
-        flag_window_ovf=flag_window_ovf, max_chain_skip=max_chain_skip, wide=wide,
-    )
+    the (B, 10) int32 wire rows. Its stages, run by staged(): sketch, anchors, chain."""
 
 
+@staged(("sketch", _sketch_stage), ("anchors", _anchors_stage), ("chain", _chain_stage))
 def _fused_map_stage(
     codes: torch.Tensor,
     lengths: torch.Tensor,
@@ -180,22 +227,10 @@ def _fused_map_stage(
     chain DP, packed into ONE (B, 6A + M + 4) int32 buffer [x_hi | x_lo |
     y_hi | y_lo | f | prev | cps | n_mini | n_anchors | mini_ovf |
     anc_ovf] (uint32 words as their int32 bits), so each batch comes
-    back in one copy."""
-    codes = _codes_from_wire(codes, lengths, nex, wire)
-    anc = sketch_to_anchors(
-        dev_idx, codes, lengths, mid_occ, w=w, k=k,
-        q_occ_max=q_occ_max, q_occ_frac=q_occ_frac, M=M, A=A,
-    )
-    f, prev = chain_dp_batch(
-        *chain_inputs(anc["x_hi"], anc["x_lo"], anc["y_hi"], anc["y_lo"]),
-        scalars, window, log2_tab, max_chain_skip,
-    )
-    words = [as_i32(anc[c]) for c in ("x_hi", "x_lo", "y_hi", "y_lo")]
-    flags = [anc[c].to(torch.int32)[:, None]
-             for c in ("n_mini", "n_anchors", "mini_ovf", "anc_ovf")]
-    return torch.cat(words + [f, prev, as_i32(anc["cps"])] + flags, dim=1)
+    back in one copy. Its stages, run by staged(): sketch, anchors, chain."""
 
 
+@named("rechain")
 def _packed_chain_stage(x_hi, x_lo, y_hi, y_lo, *, scalars: ChainScalars,
                         window: int, log2_tab: torch.Tensor,
                         max_chain_skip: int | None = None) -> torch.Tensor:
@@ -274,6 +309,10 @@ class Mapper:
         self._rescue_queue: list = []
         self.programs = (ProgramCache(self.device)
                          if self.graphs and self.device.type == "cuda" else None)
+        # the clock of eager stages without a cache, and of each call's
+        # stamps; the open call's start mark and batches
+        self._clock = Clock(self.device)
+        self._call = None
 
     @classmethod
     def from_oracle_index(cls, idx: OracleIndex, cp: ChainParams,
@@ -287,9 +326,6 @@ class Mapper:
         return cls(idx=idx, dev_idx=dev_idx, cp=cp, mp=mp, mid_occ=mid_occ,
                    device=dev, **kw)
 
-    def _t(self, key: str, dt: float):
-        _add_stats(self.stats, key, dt)
-
     def _lite_eligible(self) -> bool:
         """The on-device finalization is valid when the reference
         backtrack necessarily takes its greedy single-chain fallback
@@ -300,21 +336,35 @@ class Mapper:
 
     def map_reads_paf(self, reads: list[tuple[str, bytes]]) -> bytes:
         """Map reads; returns the PAF output as one newline-terminated
-        bytes blob in input order."""
+        bytes blob in input order. Adds to stats the host seconds of its
+        spans (map_reads_paf, group, submit, join, wide, tier2, rescue,
+        paf, ...), each stage's device seconds (dev_*) and the card's idle
+        time within the call (dev_idle_head/feed/tail, dev_call)."""
+        with span(self.stats, "map_reads_paf"):
+            self._call = (self._call_clock().mark(), [])
+            try:
+                blob = self._map_reads(reads)
+                self._close_call()
+            finally:
+                self._call = None
+        return blob
+
+    def _map_reads(self, reads) -> bytes:
         lite = self._lite_eligible()
         results: list = [None] * len(reads)
-        order = sorted(range(len(reads)), key=lambda i: len(reads[i][1]))
-        groups: dict[int, list[int]] = {}
-        for i in order:
-            L = len(reads[i][1])
-            if L == 0:
-                results[i] = []
-                continue
-            bucket = next((b for b in self.buckets if L <= b), None)
-            if bucket is None:  # longer than the largest bucket
-                results[i] = self._host_fallback(reads[i])
-                continue
-            groups.setdefault(bucket, []).append(i)
+        with span(self.stats, "group"):
+            order = sorted(range(len(reads)), key=lambda i: len(reads[i][1]))
+            groups: dict[int, list[int]] = {}
+            for i in order:
+                L = len(reads[i][1])
+                if L == 0:
+                    results[i] = []
+                    continue
+                bucket = next((b for b in self.buckets if L <= b), None)
+                if bucket is None:  # longer than the largest bucket
+                    results[i] = self._host_fallback(reads[i])
+                    continue
+                groups.setdefault(bucket, []).append(i)
 
         # phase 1: a background thread submits every batch; the drain
         # below consumes them in submission order. The producer keeps
@@ -327,47 +377,74 @@ class Mapper:
         sub_stats: dict = {}
 
         def _producer():
-            t0 = time.perf_counter()
             try:
-                self._submit_groups(reads, groups, self._scalars, lite, mult=1,
-                                    sink=q.put, stats=sub_stats)
+                with span(sub_stats, "submit"):
+                    self._submit_groups(reads, groups, self._scalars, lite, mult=1,
+                                        sink=q.put, stats=sub_stats)
             except BaseException as e:  # re-raised by the caller after join
                 err.append(e)
             finally:
                 q.put(None)
-                sub_stats["submit"] = time.perf_counter() - t0
 
         th = threading.Thread(target=_producer, daemon=True)
         th.start()
         try:
             self._drain_pending(reads, iter(q.get, None), results, lite)
         finally:
-            th.join()
-        for key, v in sub_stats.items():
-            _add_stats(self.stats, key, v)
+            with span(self.stats, "join"):
+                th.join()
+                for key, v in sub_stats.items():
+                    _add_stats(self.stats, key, v)
         if err:
             raise err[0]
 
         # phase 2.2: rescue-flagged long-read-shape reads re-run with the
         # bw_long scalars (single band; lite path only)
-        t4 = time.perf_counter()
-        self._drain_wides_lite(reads, results)
-        self._t("wide", time.perf_counter() - t4)
+        with span(self.stats, "wide"):
+            self._drain_wides_lite(reads, results)
 
         # phase 2.5: capacity-overflow reads re-run at 4x slots (lite
         # path only; the general path sends them to the host)
-        t4 = time.perf_counter()
-        self._drain_tier2(reads, results)
-        self._t("tier2", time.perf_counter() - t4)
+        with span(self.stats, "tier2"):
+            self._drain_tier2(reads, results)
 
         # phase 3: one batched wide-band re-chain of the reads the
         # general path's host rescue decision queued
-        t4 = time.perf_counter()
-        self._drain_rescues(reads, results)
-        self._t("rescue", time.perf_counter() - t4)
+        with span(self.stats, "rescue"):
+            self._drain_rescues(reads, results)
 
-        parts = [line for r in results if r for line in r]
-        return b"\n".join(parts) + b"\n" if parts else b""
+        with span(self.stats, "paf"):
+            parts = [line for r in results if r for line in r]
+            return b"\n".join(parts) + b"\n" if parts else b""
+
+    def _call_clock(self) -> Clock:
+        """The clock of the stream the call's batches run on: the program
+        cache's, or the mapper's own (the current stream)."""
+        return self.programs.clock if self.programs is not None else self._clock
+
+    def _read_batch(self, stamps, fed: bool) -> None:
+        """After stamps.wait(): add the batch's device seconds per span to
+        stats (dev_h2d, dev_<stage>, dev_d2h) and keep its interval for
+        the call's idle split; fed: phase 1's submit thread issued it."""
+        origin, batches = self._call if self._call is not None else (None, [])
+        start, end, spans = stamps.read(origin)
+        for name, sec in spans:
+            _add_stats(self.stats, "dev_" + name, sec)
+        batches.append((start, end, fed))
+
+    def _close_call(self) -> None:
+        """The call's end mark: its span on the device clock (dev_call)
+        and the card's idle time within it (idle_split)."""
+        origin, batches = self._call
+        clock = self._call_clock()
+        end = clock.mark()
+        if clock.cuda:
+            end.synchronize()
+        call_s = clock.seconds(origin, end)
+        clock.release([origin, end])
+        _add_stats(self.stats, "dev_call", call_s)
+        for key, v in idle_split(call_s, batches).items():
+            _add_stats(self.stats, key, v)
 
     def map_reads(self, reads: list[tuple[str, bytes]]) -> list[str]:
         """map_reads_paf decoded into a list of PAF line strings."""
@@ -443,20 +520,20 @@ class Mapper:
         """fn(*inputs on the device, **statics) for one batch's host arrays
         `inputs`: through the program cache (self.programs) on a CUDA
         mapper with graphs, else eagerly. Returns (the output's host
-        buffer, the event its copy completes, None on the CPU). Adds
-        device_stages, the cache's counts (or eager_stages) and the host
+        buffer, the batch's Stamps: its last event is the one its copy
+        completes, Stamps.ready, None on the CPU). Adds device_stages, the cache's counts (or eager_stages) and the host
         seconds upload, stage_issue and d2h_issue to stats."""
         _add_stats(stats, "device_stages", 1)
         inputs = tuple(map(torch.from_numpy, inputs))
         if self.programs is not None:
             return self.programs.run(fn, inputs, stats, **statics)
-        return run_eager(fn, inputs, stats, self.device, **statics)
+        return run_eager(fn, inputs, stats, self._clock, **statics)
 
     def _device_stage_lite(self, wire_arr, lengths, nex, scalars: ChainScalars, *,
                            wide: bool, M: int, A: int, window: int, wire: str,
                            max_chain_skip: int | None, stats: dict):
         """The lite program on one padded batch's host arrays (its
-        _rank_rows): _run_stage's (host wire rows, event). stats is the
+        _rank_rows): _run_stage's (host wire rows, Stamps). stats is the
         submitting thread's stats dict."""
         return self._run_stage(
             _fused_map_stage_lite, (wire_arr, lengths, nex), stats,
@@ -483,7 +560,7 @@ class Mapper:
                       M: int, A: int, window: int, wire: str,
                       max_chain_skip: int | None, stats: dict):
         """The general program on one padded batch's host arrays:
-        _run_stage's (host packed buffer, event)."""
+        _run_stage's (host packed buffer, Stamps)."""
         return self._run_stage(
             _fused_map_stage, (wire_arr, lengths, nex), stats,
             dev_idx=self.dev_idx, scalars=scalars, mid_occ=self.mid_occ,
@@ -521,11 +598,10 @@ class Mapper:
                 B = self._quantize_b(len(chunk), B_max)
                 lengths = np.zeros(B, dtype=np.int32)
                 lengths[: len(chunk)] = [len(reads[ri][1]) for ri in chunk]
-                t0 = time.perf_counter()
-                wire_arr, nex, wire = self._encode(
-                    [reads[ri][1] for ri in chunk], B, bucket
-                )
-                _add_stats(stats, "encode", time.perf_counter() - t0)
+                with span(stats, "encode"):
+                    wire_arr, nex, wire = self._encode(
+                        [reads[ri][1] for ri in chunk], B, bucket
+                    )
                 if lite:
                     wire_arr, lengths = self._rank_rows(wire_arr), self._rank_rows(lengths)
                 _add_stats(stats, "h2d_bytes", wire_arr.nbytes + lengths.nbytes
@@ -536,38 +612,58 @@ class Mapper:
                               max_chain_skip=_chain_skip_cfg(self.cp), stats=stats)
                 # the stage's host seconds go to stats as upload,
                 # stage_issue (the stage or its replay, with its
-                # collectives) and d2h_issue; the drain waits on `ready`
+                # collectives) and d2h_issue; the drain waits on its
+                # stamps' last event
                 if lite:
-                    out, ready = self._device_stage_lite(wire_arr, lengths, nex, scalars,
-                                                         wide=wide_prog, **common)
+                    out, stamps = self._device_stage_lite(wire_arr, lengths, nex, scalars,
+                                                          wide=wide_prog, **common)
                 else:
-                    out, ready = self._device_stage(wire_arr, lengths, nex, scalars,
-                                                    **common)
-                entry = (chunk, out, ready, mode, (M, A, window))
+                    out, stamps = self._device_stage(wire_arr, lengths, nex, scalars,
+                                                     **common)
+                entry = (chunk, out, stamps, mode, (M, A, window))
                 pending.append(entry)
                 if sink is not None:
                     sink(entry)
         return pending
 
     def _drain_pending(self, reads, pending, results, lite=True):
-        for chunk, out, ready, mode, (M, A, window) in pending:
-            t1 = time.perf_counter()
-            if ready is not None:
-                ready.synchronize()
-            fields = out.numpy()
-            _add_stats(self.stats, "d2h_bytes", fields.nbytes)
-            if lite:
-                if fields.shape[1] == WIRE_WORDS:
+        """Wait for each pending batch in order, read its stamps and
+        counters, and post-process its rows (d2h+wait, post: both time
+        only the wait and the post-processing, not the counters)."""
+        col = {name: i for i, name in enumerate(FIELDS)}
+        for chunk, out, stamps, mode, (M, A, window) in pending:
+            with span(self.stats, "d2h+wait"):
+                stamps.wait()
+                fields = out.numpy()
+                _add_stats(self.stats, "d2h_bytes", fields.nbytes)
+                if lite and fields.shape[1] == WIRE_WORDS:
                     fields = unpack_fields_wire(fields)
-                t2 = time.perf_counter()
-                self._postprocess_lite(reads, chunk, fields, results, mode=mode)
+            self._read_batch(stamps, fed=mode in ("normal", "lazy"))
+            if lite:
+                # the lite program runs both bands where it resolves the
+                # rescue on the device (modes normal and tier2)
+                self._count_anchors(fields[: len(chunk), col["n_anchors"]], A, window,
+                                    bands=2 if mode in ("normal", "tier2") else 1)
+                with span(self.stats, "post"):
+                    self._postprocess_lite(reads, chunk, fields, results, mode=mode)
             else:
-                t2 = time.perf_counter()
-                self._postprocess(reads, chunk, _unpack_map_stage(fields, M, A),
-                                  results, window)
-            t3 = time.perf_counter()
-            self._t("d2h+wait", t2 - t1)
-            self._t("post", t3 - t2)
+                with span(self.stats, "post"):
+                    out = _unpack_map_stage(fields, M, A)
+                    self._postprocess(reads, chunk, out, results, window)
+                self._count_anchors(out["n_anchors"][: len(chunk)], A, window, bands=1)
+
+    def _count_anchors(self, n_anchors: np.ndarray, A: int, window: int, bands: int) -> None:
+        """Add a batch's anchors (the sum of n_anchors) and its chain-DP
+        pairs under the exact window to stats (_count_pairs)."""
+        _add_stats(self.stats, "anchors", int(n_anchors.sum(dtype=np.int64)))
+        self._count_pairs(n_anchors, A, window, bands)
+
+    def _count_pairs(self, n_anchors: np.ndarray, A: int, window: int, bands: int) -> None:
+        """Add chain_pairs: bands x the candidate pairs the exact window
+        min(window, A) scores over each read's valid anchors
+        (utils/measure.window_pairs, as chain_bound counts them)."""
+        n = np.minimum(np.asarray(n_anchors, dtype=np.int64), A)
+        _add_stats(self.stats, "chain_pairs", bands * int(window_pairs(n, min(window, A)).sum()))
 
     def _drain_wides_lite(self, reads, results):
         """Phase 2.2: long-read-shape reads whose normal-band rescue flag
@@ -776,25 +872,27 @@ class Mapper:
             ).encode())
         return lines
 
-    def _rechain_wide(self, x_hi, x_lo, y_hi, y_lo, window: int):
+    def _rechain_wide(self, x_hi, x_lo, y_hi, y_lo, window: int, n_anchors):
         """The bw_long chain DP of (B, A) uint32 anchor words on the
-        device; returns host (f, prev) int32 arrays."""
+        device; returns host (f, prev) int32 arrays. n_anchors: the rows'
+        valid anchors, for chain_pairs."""
         A = x_hi.shape[1]
         words = tuple(np.ascontiguousarray(a).view(np.int32)
                       for a in (x_hi, x_lo, y_hi, y_lo))
         st: dict = {}
-        out, ready = self._run_stage(
+        out, stamps = self._run_stage(
             _packed_chain_stage, words, st, scalars=self._scalars_wide,
             window=window, log2_tab=self._log2_tab,
             max_chain_skip=_chain_skip_cfg(self.cp),
         )
         # the program counters only: the rescue's host seconds are in
         # "rescue", and upload/stage_issue/d2h_issue time the map stages
-        for k in COUNTERS:
+        for k in (*COUNTERS, "graph_evictions", "graph_recaptures"):
             if k in st:
                 _add_stats(self.stats, k, st[k])
-        if ready is not None:
-            ready.synchronize()
+        stamps.wait()
+        self._read_batch(stamps, fed=False)
+        self._count_pairs(n_anchors, A, window, bands=1)
         packed = out.numpy()
         return packed[:, :A], packed[:, A:]
 
@@ -818,7 +916,8 @@ class Mapper:
                 for c in (0, 1):  # x, y -> (hi, lo) words
                     words[2 * c, bi, :n] = anchors[:, c] >> np.uint64(32)
                     words[2 * c + 1, bi, :n] = anchors[:, c] & np.uint64(0xFFFFFFFF)
-            f2, prev2 = self._rechain_wide(*words, window)
+            f2, prev2 = self._rechain_wide(*words, window,
+                                           [a.shape[0] for _ri, a, _mp, _ms in group])
             for bi, (ri, anchors, mini_pos, mini_span) in enumerate(group):
                 n = anchors.shape[0]
                 qname, qseq = reads[ri]
@@ -861,7 +960,7 @@ class Mapper:
         _add_stats(self.stats, "rescue_reads", len(rescue_rows))
         if rescue_rows:
             f2, prev2 = self._rechain_wide(out["x_hi"], out["x_lo"], out["y_hi"],
-                                           out["y_lo"], window)
+                                           out["y_lo"], window, out["n_anchors"])
             p2 = dataclasses.replace(self.cp, bw=self.cp.bw_long)
             for bi in rescue_rows:
                 anchors = per_row[bi][0]
@@ -911,9 +1010,10 @@ class Mapper:
         """The reference-faithful host pipeline for one read."""
         _add_stats(self.stats, "host_reads", 1)
         qname, qseq = read
-        return [
-            line.encode()
-            for line in opipeline.align_read(
-                self.idx, qname, qseq, self.cp, self.mp, mid_occ=self.mid_occ
-            )
-        ]
+        with span(self.stats, "host_fallback"):
+            return [
+                line.encode()
+                for line in opipeline.align_read(
+                    self.idx, qname, qseq, self.cp, self.mp, mid_occ=self.mid_occ
+                )
+            ]

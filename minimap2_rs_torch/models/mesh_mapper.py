@@ -48,6 +48,7 @@ from ..parallel.pipeline import (
 )
 from ..parallel.sharded_index import ShardedDeviceIndex
 from .mapper import Mapper, _add_stats, _codes_from_wire
+from .programs import named
 
 
 @dataclasses.dataclass
@@ -155,9 +156,11 @@ class MeshMapper(Mapper):
         return self._run_stage(self._mesh_stage_lite, (wire_arr, lengths, nex), stats,
                                scalars=scalars, **statics)
 
+    @named("mesh_step")
     def _mesh_stage_lite(self, d_wire, d_len, d_nex, *, scalars, **statics):
         """The dp or sharded step on this rank's rows, then the all_gather
-        of every rank's wire rows."""
+        of every rank's wire rows: one stage, stamped as a whole
+        (dev_mesh_step)."""
         codes = _codes_from_wire(d_wire, d_len, d_nex, "4bit")
         common = (scalars, self._scalars_wide, self.mid_occ, self._tlens_dev,
                   self.cp.rmq_rescue_size, self.cp.rmq_rescue_ratio, self._log2_tab,

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import subprocess
 
+import numpy as np
 import torch
 
 from ..ops import chain_ops
@@ -118,6 +119,14 @@ def valid_rows(grp):
     return torch.where(grp != -1, pos, 0).amax(dim=1)
 
 
+def window_pairs(n, H: int):
+    """The candidate pairs the exact window H scores over reads of n
+    valid anchors (n an int64 tensor or array): sum_{i < n} min(i, H),
+    n(n - 1)/2 for n <= H + 1, else H(H + 1)/2 + (n - 1 - H)H."""
+    where = torch.where if isinstance(n, torch.Tensor) else np.where
+    return where(n <= H + 1, n * (n - 1) // 2, H * (H + 1) // 2 + (n - 1 - H) * H)
+
+
 def chain_bound(args, scal, window: int, n_out: int, tab, skip):
     """(bound ms, bound_by, pairs) of one chain-DP call: the pairs
     sum_b sum_{i < n_b} min(i, H), with n_b one past read b's last valid
@@ -129,9 +138,7 @@ def chain_bound(args, scal, window: int, n_out: int, tab, skip):
     B, A = grp.shape
     H = min(window, A)
     if skip is None:
-        n = valid_rows(grp)
-        pairs = int(torch.where(n <= H + 1, n * (n - 1) // 2,
-                                H * (H + 1) // 2 + (n - 1 - H) * H).sum())
+        pairs = int(window_pairs(valid_rows(grp), H).sum())
     else:
         f, prev = chain_ops.chain_dp_batch_ref(*args, scal, window, tab, max_chain_skip=skip)
         pairs = int(chain_ops.scanned_pairs(*args, f, prev, scal, window, tab, skip).sum())

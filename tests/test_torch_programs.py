@@ -175,8 +175,8 @@ def test_replays_give_each_batch_the_eager_output(small):
         kw = dict(wide=wide, M=M, A=A, window=window, wire="2bit", max_chain_skip=None)
         outs.append(cached._device_stage_lite(*arrays, cached._scalars, stats=stats, **kw))
         wants.append(eager._device_stage_lite(*arrays, eager._scalars, stats={}, **kw))
-    for (out, ready), (want, _r) in zip(outs, wants):
-        assert ready is None
+    for (out, stamps), (want, _s) in zip(outs, wants):
+        assert stamps.ready is None
         assert torch.equal(out, want)
     assert len({tuple(o.flatten().tolist()) for o, _r in outs}) == len(outs)
     # per key: the first batch eager, the second captured and replayed,
