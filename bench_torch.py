@@ -63,13 +63,13 @@ from minimap2_rs_torch.config import ChainParams, IndexParams, MapParams
 from minimap2_rs_torch.device import resolve_device
 from minimap2_rs_torch.kernels import chain_dp as kchain
 from minimap2_rs_torch.kernels import counts
+from minimap2_rs_torch.kernels import sketch as ksketch
 from minimap2_rs_torch.kernels import window_scan as kscan
 from minimap2_rs_torch.models.index_builder import build_index_device, build_index_native
 from minimap2_rs_torch.models.mapper import (
     LITE_WINDOW_CAP,
     Mapper,
     _chain_skip_cfg,
-    _codes_from_wire,
     _fused_map_stage_lite,
 )
 from minimap2_rs_torch.models.programs import CudaGraph, program_key
@@ -77,7 +77,12 @@ from minimap2_rs_torch.models.stages import sketch_to_anchors
 from minimap2_rs_torch.ops.chain_ops import chain_scalars_from_params
 from minimap2_rs_torch.ops.index_ops import index_lookup
 from minimap2_rs_torch.ops.seeds_ops import query_occ_filter, sort_minimizers_by_key
-from minimap2_rs_torch.ops.sketch import compact_minimizers, ks_keys, sketch_positions
+from minimap2_rs_torch.ops.sketch import (
+    compact_minimizers,
+    ks_keys,
+    sketch_positions,
+    wire_codes,
+)
 from minimap2_rs_torch.runtime import host as nhost
 from minimap2_rs_torch.utils.measure import chain_bound, device_ms, median, nvidia_smi, parity
 from minimap2_rs_torch.utils.seqsim import random_genome, simulate_reads
@@ -230,10 +235,10 @@ def _graph_ms(fn) -> float:
 def _counting(fn):
     """(fn(), {kernel/shape: launches}) with every launch count set to 0
     just before fn and read just after."""
-    for m in (kchain, kscan):
+    for m in (kchain, kscan, ksketch):
         m.reset_launches()
     out = fn()
-    return out, {k: v for m in (kchain, kscan) for k, v in m.launches.items() if v}
+    return out, {k: v for m in (kchain, kscan, ksketch) for k, v in m.launches.items() if v}
 
 
 def _aligned_bp(reads, lines) -> int:
@@ -280,7 +285,7 @@ def stage_prefixes(statics: dict) -> list:
     w, k, M = st["w"], st["k"], st["M"]
 
     def unpack_wire(wire, lens, nex):
-        return _codes_from_wire(wire, lens, nex, st["wire"])
+        return wire_codes(wire, lens, nex, st["wire"])
 
     def sketch(wire, lens, nex):
         return sketch_positions(unpack_wire(wire, lens, nex), lens, w, k)

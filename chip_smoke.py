@@ -4,9 +4,9 @@
 
 Builds the port's CUDA kernels from minimap2_rs_torch/csrc (the chain
 DP's two variants in their short-read, lane and template designs, their
-pruned instances in the shared-memory and template designs, and the
-window scan in its tiled and sequential designs; one nvcc per source, in
-parallel) and maps through the port's
+pruned instances in the shared-memory and template designs, the window
+scan in its tiled and sequential designs, and the odd-k sketch from the
+wire; one nvcc per source, in parallel) and maps through the port's
 Mapper.map_reads_paf:
 
   * lite path (default ChainParams, k=15): a 5 Mbp random genome
@@ -140,7 +140,11 @@ each graph launch must match its program's recorded launches. The
 captured mappers print their live programs, the seconds of each capture
 and the graph pool's bytes.
 Afterwards each kernel is held bit for bit against its plain PyTorch
-version on those inputs (the window scan's long shape on 8 rows), and
+version on those inputs (the window scan's long shape on 8 rows; the
+odd-k sketch against the chain it replaces, wire unpack, sketch_positions
+and compact_minimizers, then timed at the 1024-, 8192- and 24576-base
+buckets' (B, L, M) on reads simulated from the headline genome, the
+1024 bucket's batch also on the 4-bit wire and as int32 codes), and
 the dynamic-window shape, which no mapping path launches, on the
 headline's inputs at window 128; the mesh phases' rows on the inputs of
 the 1-rank mesh and of sharded rank 0. A synthetic phase holds both lane
@@ -203,13 +207,15 @@ from minimap2_rs_torch.utils.measure import (
     nvidia_smi,
     parity,
     scan_bound,
+    sketch_bound,
     time_ms,
     valid_rows,
 )
 
 
 # the kernel rows' note on library_ms
-LIBRARY_NOTE = "no single PyTorch call computes a sequential chaining DP or a window scan"
+LIBRARY_NOTE = ("no single PyTorch call computes a sequential chaining DP, a window scan or a "
+                "minimizer sketch")
 
 
 def _kernel_vs_plain(entries, tab, aux: bool, window=None, plain_reps: int = 5):
@@ -294,6 +300,91 @@ def _scan_vs_plain(entries, max_rows=None):
     plain_ms = time_ms(lambda: _window_scan_ref(*args[:4], w, k, args[4]), reps=1,
                         warm=False)
     return ms, card_ms, prev_ms, plain_ms, args
+
+
+def _sketch_plain(rows, lengths, nex, wire, w, k, M):
+    """The chain the odd-k sketch kernel replaces, on the card's tensors."""
+    from minimap2_rs_torch.ops.sketch import compact_minimizers, sketch_positions, wire_codes
+
+    codes = wire_codes(rows, lengths, nex, wire)
+    return compact_minimizers(*sketch_positions(codes, lengths, w, k), M)
+
+
+def _sketch_equal(tag, args, wire, w, k, M):
+    """The sketch kernel against its plain chain on one input: torch.equal
+    on every output, or AssertionError."""
+    import torch
+
+    from minimap2_rs_torch.kernels.sketch import sketch_minimizers
+
+    got = sketch_minimizers(*args, wire, w, k, M)
+    want = _sketch_plain(*args, wire, w, k, M)
+    torch.cuda.synchronize()
+    for name, g, x in zip(("cks", "cps", "n_mini", "mini_ovf"), got, want):
+        if not torch.equal(g, x):
+            bad = (g != x).nonzero()[:5].tolist()
+            raise AssertionError(f"[{tag}] sketch kernel {name} != plain chain at {bad}")
+
+
+def _sketch_rows(mapper, genome, captured: dict, total: dict) -> list:
+    """The odd-k sketch kernel held to its plain chain on every input the
+    mapping phases captured, then at the 1024-, 8192- and 24576-base
+    buckets' (B, L, M): B reads of L/2-L bases simulated from `genome`
+    (seed = L) through the mapper's own encoder, equal on the card, timed
+    (kernel and plain chain, CUDA events) beside the bound. The 1024
+    bucket's batch is also held on the 4-bit wire and as int32 codes.
+    Returns the kernel rows."""
+    import numpy as np
+    import torch
+
+    from minimap2_rs_torch.kernels.sketch import sketch_minimizers
+    from minimap2_rs_torch.ops.sketch import unpack_codes2, unpack_codes4
+    from minimap2_rs_torch.utils.seqsim import simulate_reads
+
+    for (key, L), (args, wire, w, k, M) in sorted(captured.items()):
+        _sketch_equal(f"{key} L={L}", args, wire, w, k, M)
+    print(f"sketch: every captured input equal to the plain chain: "
+          f"{sorted(captured)}")
+    w, k = mapper.idx.w, mapper.idx.k
+    rows = []
+    for bucket in (1024, 8192, 24576):
+        M, _A, _window, B = mapper._shapes_for(bucket, 1)
+        seqs = [s[:bucket] for _n, s, *_ in simulate_reads(
+            genome, B, read_len=(bucket // 2, bucket), seed=bucket)]
+        wire_arr, nex, wire = mapper._encode(seqs, B, bucket)
+        lengths = torch.tensor([len(s) for s in seqs], dtype=torch.int32, device="cuda")
+        rows_t = torch.from_numpy(wire_arr).cuda()
+        nex_t = torch.from_numpy(nex).cuda() if nex is not None else None
+        args = (rows_t, lengths, nex_t)
+        tag = f"sketch {bucket}"
+        _sketch_equal(tag, args, wire, w, k, M)
+        if bucket == 1024:
+            codes = (unpack_codes2(rows_t, lengths, nex_t) if wire == "2bit"
+                     else unpack_codes4(rows_t))
+            packed4 = (codes[:, 0::2] | codes[:, 1::2] << 4).to(torch.uint8).contiguous()
+            _sketch_equal(f"{tag} 4bit", (packed4, lengths, None), "4bit", w, k, M)
+            _sketch_equal(f"{tag} nt4", (codes.contiguous(), lengths, None), "nt4", w, k, M)
+        ms = time_ms(lambda: sketch_minimizers(*args, wire, w, k, M), inner=KERNEL_INNER)
+        plain_ms = time_ms(lambda: _sketch_plain(*args, wire, w, k, M), reps=3)
+        bound_ms, bound_by = sketch_bound(*args, wire, w, M)
+        key = f"sketch/{'long' if bucket > 4096 else 'short'}"
+        n_nex = int((nex < B * bucket).sum()) if nex is not None else None
+        print(f"sketch ({bucket} bucket): (B, L, M) = {(B, bucket, M)}, w={w}, k={k}, "
+              f"wire {wire} ({n_nex} Ns listed), all four outputs equal to the plain chain; "
+              f"kernel {ms:.4f} ms, plain chain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
+              f"({bound_by}); launches of {key} {total.get(key, 0)}")
+        rows.append(dict(
+            name=f"sketch ({bucket}-base bucket)", route="cuda",
+            source="minimap2_rs_torch/csrc/sketch.cu",
+            replaces="minimap2_rs_tpu/ops/sketch.py:163 (with models/stages.py unpack_codes2 "
+                     "and ops/sketch.py:366)",
+            launches=total.get(key, 0), max_abs_err=0, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            library_note=LIBRARY_NOTE, design="block per read",
+            shape=key.split("/")[1], timed_at=(B, bucket, M), wire=wire,
+            on_main_path=total.get(key, 0) > 0,
+        ))
+    return rows
 
 
 def _synthetic_chains(rng, B, A, n_of, r_off=0, q_off=0, step=40, jitter=3):
@@ -580,9 +671,9 @@ class _OracleRescues:
 
 
 def _kernel_modules():
-    from minimap2_rs_torch.kernels import chain_dp, window_scan
+    from minimap2_rs_torch.kernels import chain_dp, sketch, window_scan
 
-    return chain_dp, window_scan
+    return chain_dp, window_scan, sketch
 
 
 def _counted(tag, fn, keys, total):
@@ -817,7 +908,7 @@ def _forced_phases(cp, mp, total) -> None:
               f"{st.get('tier2_reads')}, wide_reads {st.get('wide_reads')}")
 
 
-KERNEL_FAMILIES = ("chain_dp", "window_scan")  # launch-key and kernel-name prefixes
+KERNEL_FAMILIES = ("chain_dp", "window_scan", "sketch")  # launch-key and kernel-name prefixes
 
 
 def _families(keys) -> dict:
@@ -831,7 +922,8 @@ def _families(keys) -> dict:
 
 
 def _profile_pass(tag, mapper, reads, trace_dir: Path) -> dict:
-    """One more pass of `reads` under torch.profiler (CUDA activity),
+    """One more pass of `reads` under torch.profiler (CUDA activity; after
+    a warm-up pass under it whose events are dropped),
     read from its chrome trace: the card's kernels and copies, and the
     host's runtime calls that launch or copy, each per device stage of
     the pass; the device busy share (the union of the card's activity
@@ -864,10 +956,22 @@ def _profile_pass(tag, mapper, reads, trace_dir: Path) -> dict:
 
     collectives = []
 
-    mapper.stats = {}
     counts.replay = replay
     try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # a warm-up pass under the profiler first, its events dropped: as
+        # the profiler's first active step, the pass lost kernel records of
+        # its first graph launch (the general long-read pass its sketch
+        # kernel, in two runs)
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=torch.profiler.schedule(wait=0, warmup=1, active=1)) as prof:
+            mapper.map_reads_paf(reads)
+            torch.cuda.synchronize()
+            prof.step()
+            for m in mods:
+                m.reset_launches()
+            replays.clear()
+            collectives.clear()
+            mapper.stats = {}
             t0 = time.perf_counter()
             mapper.map_reads_paf(reads)
             torch.cuda.synchronize()
@@ -899,13 +1003,22 @@ def _profile_pass(tag, mapper, reads, trace_dir: Path) -> dict:
             if e["name"].startswith("cudaGraphLaunch"):
                 graph_launches.append((e["ts"], e.get("args", {}).get("correlation")))
     ran = _families(name for names in by_launch.values() for name in names)
+    order = [c for _ts, c in sorted(graph_launches)]
+    got = [_families(by_launch.get(c, [])) for c in order]
     if ran != _families(k for k, v in counted.items() for _i in range(v)):
-        raise AssertionError(f"[{tag}] the card ran {ran} chain-DP/window-scan kernels, the "
-                             f"pass counted {counted}")
+        # each graph launch whose kernels differ from its program's record,
+        # with the families of the kernels no graph launch holds
+        differ = [(i, g, r, len(by_launch.get(order[i], [])),
+                   sorted({n.split("(")[0][-60:] for n in by_launch.get(order[i], [])}))
+                  for i, (g, r) in enumerate(zip(got, replays)) if g != r]
+        loose = _families(n for c, names in by_launch.items() if c not in set(order)
+                          for n in names)
+        raise AssertionError(f"[{tag}] the card ran {ran} kernels of each family, the pass "
+                             f"counted {counted}; graph launches (index, ran, recorded, "
+                             f"kernels) that differ: {differ} of {len(order)}; outside "
+                             f"graph launches {loose}")
     nccl = {}
     if mapper.programs is not None:
-        order = [c for _ts, c in sorted(graph_launches)]
-        got = [_families(by_launch.get(c, [])) for c in order]
         if got != replays:
             raise AssertionError(f"[{tag}] kernels per graph launch {got} != the launches "
                                  f"recorded for each replayed program {replays}")
@@ -1915,7 +2028,7 @@ def main(argv=None) -> int:
     sections.mark("lite headline")
     # ---- lite headline: 16,384 reads, 1 warm + 5 timed passes a path --
     lines, runs, cap_lite = _map_phase("lite headline", lite, reads, 5,
-                                       ["chain_dp_aux/static"], total)
+                                       ["chain_dp_aux/static", "sketch/short"], total)
     times, stats = runs["captured"]["times"], runs["captured"]["stats"]
     mapped = {l.split("\t", 1)[0] for l in lines}
     aligned_bp = sum(len(s) for n, s in reads if n in mapped)
@@ -1935,7 +2048,7 @@ def main(argv=None) -> int:
     sections.mark("lite long reads")
     # ---- lite long reads: 64 reads of 5-20 kb --------------------------
     llines, _r, cap_llong = _map_phase("lite long-read", lite, lreads, 3,
-                                       ["chain_dp_aux/lane"], total)
+                                       ["chain_dp_aux/lane", "sketch/long"], total)
     n_par = parity("lite longread", idx, lreads, llines, cp, mp)
     print(f"lite long-read parity vs oracle: {n_par} reads byte-identical")
     profile("lite long-read", lite)
@@ -1947,7 +2060,7 @@ def main(argv=None) -> int:
     # oracle is printed, not gated
     cp_exact = dataclasses.replace(cp_gen, max_chain_skip=1 << 30)
     glines, gruns, cap_gen = _map_phase("general headline", general, reads, 1,
-                                        ["chain_dp/static"], total)
+                                        ["chain_dp/static", "sketch/short"], total)
     n_sec = _count_where(glines, _is_secondary)
     n_s2 = _count_where(glines, lambda l: _s2(l) > 0)
     mapped = {l.split("\t", 1)[0] for l in glines}
@@ -1983,7 +2096,7 @@ def main(argv=None) -> int:
     sections.mark("general long reads")
     # ---- general long reads ----------------------------------------------
     gllines, _r, cap_glong = _map_phase("general long-read", general, lreads, 3,
-                                        ["chain_dp/lane"], total)
+                                        ["chain_dp/lane", "sketch/long"], total)
     n_par = parity("general longread", idx, lreads, gllines, cp_exact, mp)
     print(f"general long-read parity vs exact-window oracle: {n_par} reads byte-identical")
     print(f"general long reads equal to the default oracle: "
@@ -2259,6 +2372,12 @@ def main(argv=None) -> int:
                 device_ms=card_ms,
                 shape=cls, timed_at=timed, on_main_path=total.get(key, 0) > 0,
             ))
+
+        # the odd-k sketch: every input the map phases kept, then the
+        # three bucket shapes
+        sketch_caps = {kk: v for cap in (cap_lite, cap_llong, cap_gen, cap_glong, cap_19)
+                       for kk, v in cap.items() if kk[0].startswith("sketch/")}
+        kernels += _sketch_rows(mapper, genome, sketch_caps, total)
 
         sections.mark("synthetic")
         # ---- the lane, short-read and pruned kernels on synthetic edge cases --

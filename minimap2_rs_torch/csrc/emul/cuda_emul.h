@@ -21,6 +21,7 @@
 
 #include <algorithm>
 #include <array>
+#include <atomic>
 #include <barrier>
 #include <climits>
 #include <cmath>
@@ -89,6 +90,16 @@ inline int __float_as_int(float f) {
 template <class T>
 inline T __ldg(const T* p) { return *p; }
 inline int __ffs(int x) { return __builtin_ffs(x); }
+inline int __clz(int x) { return x == 0 ? 32 : __builtin_clz((unsigned)x); }
+inline unsigned long long __brevll(unsigned long long x) {
+  unsigned long long r = 0;
+  for (int i = 0; i < 64; ++i, x >>= 1) r = r << 1 | (x & 1);
+  return r;
+}
+// shared memory is one block's statics, written by its std::threads at once
+inline unsigned atomicOr(unsigned* p, unsigned v) {
+  return std::atomic_ref<unsigned>(*p).fetch_or(v);
+}
 
 namespace mm2t_emul {
 

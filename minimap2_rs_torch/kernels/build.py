@@ -113,5 +113,13 @@ def library() -> ctypes.CDLL:
                 ci, ci, ci, ci,      # B, L, w, k
                 vp,                  # stream
             ]
+        fn = lib.mm2t_sketch_minimizers
+        fn.restype = ci
+        fn.argtypes = [
+            vp, ci, vp, vp, ci,  # rows, wire, lengths, nex, its length
+            vp, vp, vp, vp,      # cks, cps, n_mini, mini_ovf
+            ci, ci, ci, ci, ci,  # B, L, w, k, M
+            vp,                  # stream
+        ]
         _lib = lib
     return _lib

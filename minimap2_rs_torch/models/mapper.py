@@ -46,6 +46,7 @@ import torch
 
 from ..config import ChainParams, MapParams
 from ..device import resolve_device
+from ..kernels import sketch as ksketch
 from ..kernels.chain_dp import chain_dp_batch
 from ..ops.chain_ops import ChainScalars, chain_scalars_from_params, log2_table
 from ..ops.finalize_ops import FIELDS, WIRE_WORDS, as_i32, unpack_fields_wire
@@ -79,8 +80,6 @@ from .stages import (
     chain_inputs,
     lookup_expand,
     sketch_compact_filter,
-    unpack_codes2,
-    unpack_codes4,
 )
 
 # per-batch capacity of the 2-bit wire's ambiguous-base exception list;
@@ -127,24 +126,13 @@ def _dv_from_fields(fields: np.ndarray, col: dict) -> np.ndarray:
     )
 
 
-def _codes_from_wire(codes, lengths, nex, wire: str) -> torch.Tensor:
-    """The H2D wire -> (B, L) int32 nt4 codes."""
-    if wire == "4bit":
-        codes = unpack_codes4(codes)
-    elif wire == "2bit":
-        codes = unpack_codes2(codes, lengths, nex)
-    if codes.shape[-1] > 1 << 22:
-        raise ValueError("reads longer than 4M bases are unsupported")
-    return codes
-
-
 def _sketch_stage(codes, lengths, nex, *, wire: str, w: int, k: int, q_occ_max: int,
                   q_occ_frac: float, M: int, **_) -> dict:
-    """Stage "sketch" of the map programs: wire unpack through
-    sketch_compact_filter; the minimizers, and the lengths for the
-    stages after it."""
-    mini = sketch_compact_filter(_codes_from_wire(codes, lengths, nex, wire), lengths,
-                                 w=w, k=k, q_occ_max=q_occ_max, q_occ_frac=q_occ_frac, M=M)
+    """Stage "sketch" of the map programs: sketch_compact_filter on the
+    batch's wire (at odd k one kernel reads the wire itself); the
+    minimizers, and the lengths for the stages after it."""
+    mini = sketch_compact_filter(codes, lengths, w=w, k=k, q_occ_max=q_occ_max,
+                                 q_occ_frac=q_occ_frac, M=M, wire=wire, nex=nex)
     return dict(mini, lengths=lengths)
 
 
@@ -521,13 +509,19 @@ class Mapper:
         `inputs`: through the program cache (self.programs) on a CUDA
         mapper with graphs, else eagerly. Returns (the output's host
         buffer, the batch's Stamps: its last event is the one its copy
-        completes, Stamps.ready, None on the CPU). Adds device_stages, the cache's counts (or eager_stages) and the host
-        seconds upload, stage_issue and d2h_issue to stats."""
+        completes, Stamps.ready, None on the CPU). Adds device_stages, the
+        cache's counts (or eager_stages), sketch_kernel_batches (the odd-k
+        sketch kernel's launches, replays included, kernels/sketch.py) and
+        the host seconds upload, stage_issue and d2h_issue to stats."""
         _add_stats(stats, "device_stages", 1)
         inputs = tuple(map(torch.from_numpy, inputs))
+        sketched = ksketch.total_launches()
         if self.programs is not None:
-            return self.programs.run(fn, inputs, stats, **statics)
-        return run_eager(fn, inputs, stats, self._clock, **statics)
+            out = self.programs.run(fn, inputs, stats, **statics)
+        else:
+            out = run_eager(fn, inputs, stats, self._clock, **statics)
+        _add_stats(stats, "sketch_kernel_batches", ksketch.total_launches() - sketched)
+        return out
 
     def _device_stage_lite(self, wire_arr, lengths, nex, scalars: ChainScalars, *,
                            wide: bool, M: int, A: int, window: int, wire: str,

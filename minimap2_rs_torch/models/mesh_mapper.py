@@ -47,7 +47,8 @@ from ..parallel.pipeline import (
     sharded_payload_bytes,
 )
 from ..parallel.sharded_index import ShardedDeviceIndex
-from .mapper import Mapper, _add_stats, _codes_from_wire
+from ..ops.sketch import wire_codes
+from .mapper import Mapper, _add_stats
 from .programs import named
 
 
@@ -161,7 +162,7 @@ class MeshMapper(Mapper):
         """The dp or sharded step on this rank's rows, then the all_gather
         of every rank's wire rows: one stage, stamped as a whole
         (dev_mesh_step)."""
-        codes = _codes_from_wire(d_wire, d_len, d_nex, "4bit")
+        codes = wire_codes(d_wire, d_len, d_nex, "4bit")
         common = (scalars, self._scalars_wide, self.mid_occ, self._tlens_dev,
                   self.cp.rmq_rescue_size, self.cp.rmq_rescue_ratio, self._log2_tab,
                   statics)

@@ -1,10 +1,12 @@
 """Device pipeline stages of the mapping paths, in PyTorch.
 
 Counterpart of minimap2_rs_tpu/models/stages.py: wire unpack -> sketch
--> minimizer compaction -> key sort -> occurrence filter -> index lookup
--> anchor expansion -> chain DP (the CUDA kernel on the card). The lite
-path goes on to on-device finalize and 10-word wire rows; the general
-path's program (models/mapper.py) returns the anchors and (f, prev).
+-> minimizer compaction (at odd k one kernel from the wire on the card,
+kernels/sketch.py; the unpack lives in ops/sketch.py) -> key sort ->
+occurrence filter -> index lookup -> anchor expansion -> chain DP (the
+CUDA kernel on the card). The lite path goes on to on-device finalize
+and 10-word wire rows; the general path's program (models/mapper.py)
+returns the anchors and (f, prev).
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels.chain_dp import chain_dp_aux_batch
+from ..kernels.sketch import sketch_minimizers
 from ..ops.chain_ops import ChainScalars
 from ..ops.finalize_ops import (
     FIELDS,
@@ -22,43 +25,28 @@ from ..ops.finalize_ops import (
 )
 from ..ops.index_ops import DeviceIndex
 from ..ops.seeds_ops import build_anchors_device, query_occ_filter, sort_minimizers_by_key
-from ..ops.sketch import compact_minimizers, sketch_positions
-
-
-def unpack_codes4(codes4: torch.Tensor) -> torch.Tensor:
-    """(B, L//2) uint8 two-nibble packed nt4 codes -> (B, L) int32."""
-    B, L2 = codes4.shape
-    c = codes4.to(torch.int32)
-    return torch.stack([c & 0xF, c >> 4], dim=-1).reshape(B, 2 * L2)
-
-
-def unpack_codes2(codes2: torch.Tensor, lengths: torch.Tensor,
-                  nex: torch.Tensor) -> torch.Tensor:
-    """2-bit H2D wire -> (B, L) int32 nt4 codes, equal to the 4-bit
-    wire's: (B, L//4) uint8 rows of 4 codes/byte; positions past each
-    read's length become the nt4=4 sentinel; the flat N-exception list
-    `nex` (padded with the out-of-range B*L) scatters 4 back."""
-    B, L4 = codes2.shape
-    L = 4 * L4
-    c = codes2.to(torch.int32)
-    codes = torch.stack([(c >> (2 * s)) & 3 for s in range(4)], dim=-1).reshape(B, L)
-    pos = torch.arange(L, device=codes.device)
-    codes = torch.where(pos[None, :] < lengths[:, None], codes, 4)
-    # one spare slot takes the out-of-range padding entries
-    flat = torch.cat([codes.reshape(-1), codes.new_zeros(1)])
-    # a fill kernel: `flat[idx] = 4` would copy the 4 from host memory,
-    # which a captured program cannot do
-    flat.index_fill_(0, nex.to(torch.int64).clamp(0, B * L), 4)
-    return flat[: B * L].reshape(B, L)
+from ..ops.sketch import compact_minimizers, sketch_positions, wire_codes
 
 
 def sketch_compact_filter(codes, lengths, *, w: int, k: int, q_occ_max: int,
-                          q_occ_frac: float, M: int) -> dict:
+                          q_occ_frac: float, M: int, wire: str = "nt4",
+                          nex=None) -> dict:
     """Index-independent per-read work: sketch, minimizer compaction,
     key sort, query-occurrence filter (seeds.rs:7-36). Queries are
-    always sketched non-HPC (seeds.rs:7-11)."""
-    ks, ps, emitted = sketch_positions(codes, lengths, w, k)
-    cks, cps, n_mini, mini_ovf = compact_minimizers(ks, ps, emitted, M)
+    always sketched non-HPC (seeds.rs:7-11). `codes` holds the batch as
+    `wire` says (ops/sketch.WIRE_CODES): (B, L) nt4 codes, or a map
+    program's H2D wire, the 2-bit one with its N list `nex`.
+
+    At odd k the sketch and the compaction are one kernel on the card
+    that reads the wire itself (kernels/sketch.py; on the CPU its plain
+    version, the chain below); even k unpacks the wire and takes
+    sketch_positions' exact scan."""
+    if k % 2:
+        cks, cps, n_mini, mini_ovf = sketch_minimizers(codes, lengths, nex, wire, w, k, M)
+    else:
+        ks, ps, emitted = sketch_positions(wire_codes(codes, lengths, nex, wire),
+                                           lengths, w, k)
+        cks, cps, n_mini, mini_ovf = compact_minimizers(ks, ps, emitted, M)
     sks, sps = sort_minimizers_by_key(cks, cps)
     keep = query_occ_filter(sks, n_mini, q_occ_max, q_occ_frac)
     return dict(sks=sks, sps=sps, keep=keep, cps=cps, n_mini=n_mini,

@@ -17,6 +17,11 @@ intermediate leaves int64. Keys leave as one `key << 8 | span` word
 (KS_INVALID for invalid slots). At even k = 28 that word reaches 2^64:
 it is kept as the uint64's bit pattern (negative as int64), and every
 comparison of such words goes through `ordered_ks`.
+
+The map programs' H2D wire (unpack_codes2, unpack_codes4: JAX
+models/stages.py:32-58) is unpacked here too, ahead of the sketch; at odd
+k the mapper's query sketch runs as one kernel from the wire on the card
+(kernels/sketch.py), with this module's functions as its plain version.
 """
 
 from __future__ import annotations
@@ -259,3 +264,50 @@ def compact_minimizers(ks: torch.Tensor, pos_strand: torch.Tensor,
         out_ks[:, :max_out].contiguous(), out_ps[:, :max_out].contiguous(),
         n.clamp(max=max_out).to(torch.int32), n > max_out,
     )
+
+
+def unpack_codes4(codes4: torch.Tensor) -> torch.Tensor:
+    """(B, L//2) uint8 two-nibble packed nt4 codes -> (B, L) int32."""
+    B, L2 = codes4.shape
+    c = codes4.to(torch.int32)
+    return torch.stack([c & 0xF, c >> 4], dim=-1).reshape(B, 2 * L2)
+
+
+def unpack_codes2(codes2: torch.Tensor, lengths: torch.Tensor,
+                  nex: torch.Tensor) -> torch.Tensor:
+    """2-bit H2D wire -> (B, L) int32 nt4 codes, equal to the 4-bit
+    wire's: (B, L//4) uint8 rows of 4 codes/byte; positions past each
+    read's length become the nt4=4 sentinel; the flat N-exception list
+    `nex` (padded with the out-of-range B*L) scatters 4 back."""
+    B, L4 = codes2.shape
+    L = 4 * L4
+    c = codes2.to(torch.int32)
+    codes = torch.stack([(c >> (2 * s)) & 3 for s in range(4)], dim=-1).reshape(B, L)
+    pos = torch.arange(L, device=codes.device)
+    codes = torch.where(pos[None, :] < lengths[:, None], codes, 4)
+    # one spare slot takes the out-of-range padding entries
+    flat = torch.cat([codes.reshape(-1), codes.new_zeros(1)])
+    # a fill kernel: `flat[idx] = 4` would copy the 4 from host memory,
+    # which a captured program cannot do
+    flat.index_fill_(0, nex.to(torch.int64).clamp(0, B * L), 4)
+    return flat[: B * L].reshape(B, L)
+
+
+# positions an element of each wire's rows holds: the 2-bit and 4-bit H2D
+# wires (uint8 rows), and plain (B, L) int32 nt4 codes
+WIRE_CODES = {"2bit": 4, "4bit": 2, "nt4": 1}
+
+
+def wire_codes(rows: torch.Tensor, lengths: torch.Tensor, nex: torch.Tensor | None,
+               wire: str) -> torch.Tensor:
+    """The batch as `wire` holds it (WIRE_CODES; `nex` the 2-bit wire's N
+    list) -> (B, L) int32 nt4 codes."""
+    if wire not in WIRE_CODES:
+        raise ValueError(f"unknown wire {wire!r}")
+    if rows.shape[-1] * WIRE_CODES[wire] > 1 << 22:
+        raise ValueError("reads longer than 4M bases are unsupported")
+    if wire == "4bit":
+        return unpack_codes4(rows)
+    if wire == "2bit":
+        return unpack_codes2(rows, lengths, nex)
+    return rows

@@ -262,6 +262,7 @@ def mesh_map(rank: int, world_size: int, runs: list, *, device: str | torch.devi
     collectives. With dm_entry, a sharded run's shard must have that
     direct-table entry."""
     from ..kernels import chain_dp as kchain
+    from ..kernels import sketch as ksketch
     from ..kernels import window_scan as kscan
     from ..models.mesh_mapper import make_mesh_mapper
     from ..models.programs import ProgramCache
@@ -294,7 +295,7 @@ def mesh_map(rank: int, world_size: int, runs: list, *, device: str | torch.devi
         if n_passes:
             times, pass_stats = [], []
             mm.mesh.stats.clear()
-            for mod in (kchain, kscan):
+            for mod in (kchain, kscan, ksketch):
                 mod.reset_launches()
             for _ in range(n_passes):
                 mm.stats = {}
@@ -304,7 +305,7 @@ def mesh_map(rank: int, world_size: int, runs: list, *, device: str | torch.devi
                     torch.cuda.synchronize(mm.device)
                 times.append(time.perf_counter() - t0)
                 pass_stats.append(dict(mm.stats))
-            res["launches"] = {kk: v for mod in (kchain, kscan)
+            res["launches"] = {kk: v for mod in (kchain, kscan, ksketch)
                                for kk, v in mod.launches.items() if v}
             res["times"] = times
             res["pass_stats"] = pass_stats

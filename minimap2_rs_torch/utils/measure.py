@@ -104,6 +104,18 @@ CHAIN_OPS_PER_PAIR = 29
 SCAN_OPS_PER_POSITION = 12
 
 
+def sketch_ops_per_position(w: int) -> int:
+    """Operations of one position in csrc/sketch.cu, outside the halos
+    each tile computes again: decoding its code from the wire and its
+    share of the three ballots (8), l from the no-base flags (8), the
+    k-mer's funnel shift, mask and complement (10), the bit reversal to
+    the forward k-mer (8), the strand compare and select (3), hash64
+    (20), the word and its pos << 1 | strand (7), the step's rules (15),
+    its compaction share (10): 89; and the step's argmin, four a window
+    slot: 4 (w - 1)."""
+    return 89 + 4 * (w - 1)
+
+
 def bound(ops: int, nbytes: int):
     """(bound ms, what bounds it): the larger of the operations over the
     float32 peak and the bytes over the memory rate."""
@@ -156,6 +168,18 @@ def scan_bound(args):
     positions = int(lengths.long().sum())
     nbytes = B * L * (8 + 8 + 4 + 1) + B * (4 + 1)
     return bound(positions * SCAN_OPS_PER_POSITION, nbytes)
+
+
+def sketch_bound(rows, lengths, nex, wire: str, w: int, M: int):
+    """(bound ms, bound_by) of one odd-k sketch call: the positions
+    sum_b lengths[b] times sketch_ops_per_position(w); the bytes of the
+    wire's rows, the N list and the lengths, and of the outputs (cks and
+    cps, int64 each, n_mini and mini_ovf)."""
+    B = rows.shape[0]
+    positions = int(lengths.long().sum())
+    nbytes = (rows.numel() * rows.element_size() + B * 4
+              + (nex.numel() * 4 if wire == "2bit" else 0) + B * M * 16 + B * 5)
+    return bound(positions * sketch_ops_per_position(w), nbytes)
 
 
 def parity(tag, idx, sample, lines, cp, mp) -> int:

@@ -67,7 +67,7 @@ def _long_set():
 
 def _unsplit_lite(codes, lengths, nex, **st):
     """The lite program as one function, as it was before the split."""
-    codes = tmapper._codes_from_wire(codes, lengths, nex, st["wire"])
+    codes = tstages.wire_codes(codes, lengths, nex, st["wire"])
     anc = tstages.sketch_to_anchors(
         st["dev_idx"], codes, lengths, st["mid_occ"], w=st["w"], k=st["k"],
         q_occ_max=st["q_occ_max"], q_occ_frac=st["q_occ_frac"], M=st["M"], A=st["A"])
@@ -80,7 +80,7 @@ def _unsplit_lite(codes, lengths, nex, **st):
 
 def _unsplit_general(codes, lengths, nex, **st):
     """The general program as one function, as it was before the split."""
-    codes = tmapper._codes_from_wire(codes, lengths, nex, st["wire"])
+    codes = tstages.wire_codes(codes, lengths, nex, st["wire"])
     anc = tstages.sketch_to_anchors(
         st["dev_idx"], codes, lengths, st["mid_occ"], w=st["w"], k=st["k"],
         q_occ_max=st["q_occ_max"], q_occ_frac=st["q_occ_frac"], M=st["M"], A=st["A"])

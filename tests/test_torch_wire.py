@@ -11,7 +11,7 @@ import jax.numpy as jnp  # noqa: E402
 from minimap2_rs_tpu.models import stages as jstages  # noqa: E402
 from minimap2_rs_tpu.ops import finalize_ops as jfin  # noqa: E402
 from minimap2_rs_tpu.runtime.host import native_encode_pack2, native_encode_pack4  # noqa: E402
-from minimap2_rs_torch.models.stages import unpack_codes2, unpack_codes4  # noqa: E402
+from minimap2_rs_torch.ops.sketch import unpack_codes2, unpack_codes4  # noqa: E402
 from minimap2_rs_torch.ops import finalize_ops as tfin  # noqa: E402
 
 torch.set_num_threads(2)
