@@ -70,7 +70,6 @@ from minimap2_rs_torch.models.mapper import (
     LITE_WINDOW_CAP,
     Mapper,
     _chain_skip_cfg,
-    _fused_map_stage_lite,
 )
 from minimap2_rs_torch.models.programs import CudaGraph, program_key
 from minimap2_rs_torch.models.stages import sketch_to_anchors
@@ -277,10 +276,11 @@ def lite_batch(mapper: Mapper, reads, bucket: int):
             lite_statics(mapper, bucket, wire))
 
 
-def stage_prefixes(statics: dict) -> list:
+def stage_prefixes(statics: dict, program) -> list:
     """[(stage, fn(wire, lengths, nex))]: the cumulative prefixes of the
     lite program (bench.py:_measure_stage_floor), each through the port's
-    own functions with the program's statics; the last is the program."""
+    own functions with the program's statics; the last is `program`, the
+    mapper's lite program of its index layout (Mapper._map_program)."""
     st = statics
     w, k, M = st["w"], st["k"], st["M"]
 
@@ -308,7 +308,7 @@ def stage_prefixes(statics: dict) -> list:
                                  q_occ_frac=st["q_occ_frac"], M=M, A=st["A"])
 
     def chain_finalize(wire, lens, nex):
-        return _fused_map_stage_lite(wire, lens, nex, **st)
+        return program(wire, lens, nex, **st)
 
     return [(f.__name__, f) for f in (unpack_wire, sketch, compact, minisort, lookup,
                                       expand_sort, chain_finalize)]
@@ -320,12 +320,14 @@ def stage_ms_per_call(mapper: Mapper, reads, bucket: int) -> dict:
     measured: a difference may come out below 0), and full_call, one
     replay of the mapper's own captured program for that key. On the
     card each prefix is captured and replayed (_graph_ms); on the CPU the
-    host clock times it, and full_call is the whole program's prefix."""
+    host clock times it, and full_call is the whole program's prefix, or
+    the host clock's replay where the mapper holds captured programs."""
     dev = mapper.device
     host_in, statics = lite_batch(mapper, reads, bucket)
+    program = mapper._map_program(lite=True)
     inputs = tuple(a.to(dev) for a in host_in)
     out, prev = {}, 0.0
-    for name, fn in stage_prefixes(statics):
+    for name, fn in stage_prefixes(statics, program):
         call = functools.partial(fn, *inputs)
         t = _graph_ms(call) if dev.type == "cuda" else _host_ms(call, dev)
         out[name] = t - prev
@@ -333,11 +335,11 @@ def stage_ms_per_call(mapper: Mapper, reads, bucket: int) -> dict:
     if mapper.programs is None:
         out["full_call"] = prev
     else:
-        prog = mapper.programs.programs.get(
-            program_key(_fused_map_stage_lite, host_in, statics))
+        prog = mapper.programs.programs.get(program_key(program, host_in, statics))
         if prog is None:
             raise AssertionError(f"the mapper holds no captured program for bucket {bucket}")
-        out["full_call"] = device_ms(prog.replay)
+        out["full_call"] = (device_ms(prog.replay) if dev.type == "cuda"
+                            else _host_ms(prog.replay, dev))
     return out
 
 

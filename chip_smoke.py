@@ -90,8 +90,9 @@ Mapper.map_reads_paf:
     layout and table bytes; 16,384 short and 512 long reads as in the
     assembly phase, parity on every 64th read of each, the short mix on
     all 24 nuclear chromosomes at CHM13's target lengths, the wire flags
-    and host-fallback share of each mix (printed, not gated); the
-    general-path sample; the lookup stage's card time; peak device
+    and host-fallback share of each mix (printed, not gated); up to 12
+    long reads that the 4x tier mapped on the card, held to the oracle;
+    the general-path sample; the lookup stage's card time; peak device
     memory and the child's peak RSS. It times its own four kernel rows
     and hands them to the parent;
   * bench: bench_torch.py (the port's bench.py) at a cut size, `--reads
@@ -1528,6 +1529,42 @@ def _general_sample(tag, idx, mapper, sample, cp, mp):
     return cap_g, gcounts
 
 
+def _tier2_parity(tag, mapper, reads, idx, cp, mp, cap: int = 12) -> int:
+    """One more pass of `reads` on `mapper` that records the reads its
+    phase 2.5 re-ran at 4x capacities and those it then sent to the host
+    pipeline; the first `cap` of the tier's reads that stayed on the card
+    held byte for byte to the oracle. Fails unless at least one did.
+    Returns the number held."""
+    tier, host = [], set()
+    drain, fallback = mapper._drain_tier2, mapper._host_fallback
+
+    def record_tier(pass_reads, results):
+        tier.extend(pass_reads[ri] for ri in mapper._tier2_queue)
+        return drain(pass_reads, results)
+
+    def record_host(read):
+        host.add(read[0])
+        return fallback(read)
+
+    mapper._drain_tier2, mapper._host_fallback = record_tier, record_host
+    try:
+        mapper.stats = {}
+        lines = mapper.map_reads_paf(reads).decode().split("\n")[:-1]
+    finally:
+        del mapper._drain_tier2, mapper._host_fallback
+    order = {n: i for i, (n, _s) in enumerate(reads)}
+    on_card = sorted((r for r in tier if r[0] not in host), key=lambda r: order[r[0]])
+    if not on_card:
+        raise AssertionError(f"[{tag}] no read of the 4x tier stayed on the card: {len(tier)} "
+                             f"in the tier, {len(host)} to the host pipeline")
+    t0 = time.perf_counter()
+    n_par = parity(f"{tag} 4x tier", idx, on_card[:cap], lines, cp, mp)
+    print(f"{tag} 4x tier: {len(tier)} reads re-run at 4x capacities, {len(on_card)} of them "
+          f"mapped on the card ({len(host)} reads to the host pipeline); parity vs oracle: "
+          f"{n_par} of those byte-identical ({time.perf_counter() - t0:.1f} s)")
+    return n_par
+
+
 def _lookup_ms(tag, mapper, reads) -> dict:
     """bench_torch.stage_ms_per_call at the 1024 bucket on `mapper`
     (after its passes): each stage's card ms a call, printed with the
@@ -1708,7 +1745,9 @@ def _chm13_phase(cp, mp, wait=None) -> list:
     short-read kernel, then the aux lane kernel), every 64th read of each
     mix byte-identical to the oracle, the short mix on every nuclear
     chromosome with CHM13's target lengths; the wire flags of each mix's
-    first pass and its host-fallback share (printed, not gated); the
+    first pass and its host-fallback share (printed, not gated); one
+    more pass of the long mix, the first 12 of its reads that the 4x tier
+    mapped on the card byte-identical to the oracle (_tier2_parity); the
     general path on the sampled reads against the exact-window oracle;
     the lookup stage's card time; the peak device memory and this
     process's peak RSS. Returns the kernel rows (dicts), each held to its
@@ -1821,6 +1860,7 @@ def _chm13_phase(cp, mp, wait=None) -> list:
             print(f"{tag} short: PAF lines on all {len(nuclear)} nuclear chromosomes, each at "
                   f"CHM13's length (chr1 {per['chr1']}); lines a target " + json.dumps(
                       {n: sum(1 for l in lines if l.split("\t", 6)[5] == n) for n in per}))
+    _tier2_parity(tag, mapper, long_, idx, cp, mp)
     _lookup_ms(tag, mapper, short)
     cap_g, gcounts = _general_sample(tag, idx, mapper, short[::64] + long_[::64], cp, mp)
     print(_peak_line(tag))

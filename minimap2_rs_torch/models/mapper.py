@@ -62,6 +62,7 @@ from ..runtime.host import (
     native_encode_pack4,
     native_format_lite,
     native_postprocess,
+    powf,
 )
 from ..utils.packing import nt4_encode
 from ..utils.measure import window_pairs
@@ -78,7 +79,8 @@ from .programs import (
 from .stages import (
     chain_finalize_lite,
     chain_inputs,
-    lookup_expand,
+    expand,
+    probe,
     sketch_compact_filter,
 )
 
@@ -110,8 +112,9 @@ def _combine64(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
 
 
 def _dv_from_fields(fields: np.ndarray, col: dict) -> np.ndarray:
-    """dv for the whole batch in one vectorized float32 pass (bit-equal
-    to the reference's scalar f32 math, paf.rs:156-199)."""
+    """dv for the whole batch in float32, bit-equal to the reference's
+    scalar f32 math (paf.rs:156-199): the quotients in NumPy, the power
+    by libm's powf (runtime/host.powf)."""
     avg_k = fields[:, col["sum_span"]].astype(np.float32) / np.maximum(
         fields[:, col["n_mini"]], 1
     ).astype(np.float32)
@@ -121,7 +124,7 @@ def _dv_from_fields(fields: np.ndarray, col: dict) -> np.ndarray:
     ).astype(np.float32)
     return np.where(
         (frac < np.float32(1.0)) & (fields[:, col["dv_found"]] != 0),
-        np.float32(1.0) - frac ** (np.float32(1.0) / kf),
+        np.float32(1.0) - powf(frac, np.float32(1.0) / kf),
         np.float32(0.0),
     )
 
@@ -137,10 +140,23 @@ def _sketch_stage(codes, lengths, nex, *, wire: str, w: int, k: int, q_occ_max: 
 
 
 def _anchors_stage(mini: dict, *, dev_idx: DeviceIndex, mid_occ: int, A: int, **_) -> dict:
-    """Stage "anchors": lookup_expand (sketch_to_anchors' second half);
-    the anchors with the minimizers' cps, n_mini, mini_ovf and the
-    lengths."""
-    anc = lookup_expand(dev_idx, mini, mini["lengths"], mid_occ, A)
+    """Stage "anchors" on a direct table: the index lookup (stages.probe)
+    and _expand_stage in one stage (sketch_to_anchors' second half)."""
+    return _expand_stage(probe(dev_idx, mini), dev_idx=dev_idx, mid_occ=mid_occ, A=A)
+
+
+def _probe_stage(mini: dict, *, dev_idx: DeviceIndex, **_) -> dict:
+    """Stage "probe" of the map programs on the prefix-probe layout: the
+    index lookup alone (stages.probe), the minimizers with their keys'
+    occurrence blocks."""
+    return probe(dev_idx, mini)
+
+
+def _expand_stage(mini: dict, *, dev_idx: DeviceIndex, mid_occ: int, A: int, **_) -> dict:
+    """Stage "anchors" after "probe": the expansion and sort
+    (stages.expand); the anchors with the minimizers' cps, n_mini,
+    mini_ovf and the lengths."""
+    anc = expand(dev_idx, mini, mini["lengths"], mid_occ, A)
     anc.update({c: mini[c] for c in ("cps", "n_mini", "mini_ovf", "lengths")})
     return anc
 
@@ -216,6 +232,25 @@ def _fused_map_stage(
     y_hi | y_lo | f | prev | cps | n_mini | n_anchors | mini_ovf |
     anc_ovf] (uint32 words as their int32 bits), so each batch comes
     back in one copy. Its stages, run by staged(): sketch, anchors, chain."""
+
+
+def _probed(program):
+    """A map program for the prefix-probe layout (no direct table): its
+    stage "anchors" split into "probe", index_lookup alone, and
+    "anchors", the expansion and sort, so that the lookup has stamps of
+    its own (dev_probe). The same bytes, under its own name."""
+    stages = []
+    for name, stage in program.stages:
+        stages += ([("probe", _probe_stage), ("anchors", _expand_stage)]
+                   if name == "anchors" else [(name, stage)])
+    probed = staged(*stages)(program.__wrapped__)
+    probed.__name__ += "_probe"
+    probed.__qualname__ += "_probe"
+    return probed
+
+
+_fused_map_stage_lite_probe = _probed(_fused_map_stage_lite)
+_fused_map_stage_probe = _probed(_fused_map_stage)
 
 
 @named("rechain")
@@ -494,6 +529,14 @@ class Mapper:
             packed4 = codes[:, 0::2] | (codes[:, 1::2] << 4)
         return packed4
 
+    def _map_program(self, lite: bool):
+        """The lite or the general map program of the index's layout: on
+        the prefix probe (no direct table) the one that runs the index
+        lookup as a stage of its own, "probe"."""
+        if self.dev_idx.dm_slots:
+            return _fused_map_stage_lite if lite else _fused_map_stage
+        return _fused_map_stage_lite_probe if lite else _fused_map_stage_probe
+
     def _stage_kw(self) -> dict:
         """The index's and map parameters' statics of a device program."""
         return dict(w=self.idx.w, k=self.idx.k, q_occ_max=self.mp.q_occ_max,
@@ -530,14 +573,14 @@ class Mapper:
         _rank_rows): _run_stage's (host wire rows, Stamps). stats is the
         submitting thread's stats dict."""
         return self._run_stage(
-            _fused_map_stage_lite, (wire_arr, lengths, nex), stats,
+            self._map_program(lite=True), (wire_arr, lengths, nex), stats,
             **self._lite_statics(scalars, wide=wide, M=M, A=A, window=window, wire=wire,
                                  max_chain_skip=max_chain_skip),
         )
 
     def _lite_statics(self, scalars: ChainScalars, *, wide: bool, M: int, A: int,
                       window: int, wire: str, max_chain_skip: int | None) -> dict:
-        """Every keyword argument of _fused_map_stage_lite for one batch
+        """Every keyword argument of the lite program for one batch
         shape and band: the statics of its program (bench_torch.py times
         the same call)."""
         return dict(
@@ -556,7 +599,7 @@ class Mapper:
         """The general program on one padded batch's host arrays:
         _run_stage's (host packed buffer, Stamps)."""
         return self._run_stage(
-            _fused_map_stage, (wire_arr, lengths, nex), stats,
+            self._map_program(lite=False), (wire_arr, lengths, nex), stats,
             dev_idx=self.dev_idx, scalars=scalars, mid_occ=self.mid_occ,
             log2_tab=self._log2_tab, M=M, A=A, window=window, wire=wire,
             max_chain_skip=max_chain_skip, **self._stage_kw(),
@@ -633,11 +676,14 @@ class Mapper:
                 if lite and fields.shape[1] == WIRE_WORDS:
                     fields = unpack_fields_wire(fields)
             self._read_batch(stamps, fed=mode in ("normal", "lazy"))
+            probed = "probe" in stamps.names
             if lite:
                 # the lite program runs both bands where it resolves the
                 # rescue on the device (modes normal and tier2)
                 self._count_anchors(fields[: len(chunk), col["n_anchors"]], A, window,
                                     bands=2 if mode in ("normal", "tier2") else 1)
+                if probed:
+                    self._count_probe(fields[: len(chunk), col["n_mini"]])
                 with span(self.stats, "post"):
                     self._postprocess_lite(reads, chunk, fields, results, mode=mode)
             else:
@@ -645,12 +691,20 @@ class Mapper:
                     out = _unpack_map_stage(fields, M, A)
                     self._postprocess(reads, chunk, out, results, window)
                 self._count_anchors(out["n_anchors"][: len(chunk)], A, window, bands=1)
+                if probed:
+                    self._count_probe(out["n_mini"][: len(chunk)])
 
     def _count_anchors(self, n_anchors: np.ndarray, A: int, window: int, bands: int) -> None:
         """Add a batch's anchors (the sum of n_anchors) and its chain-DP
         pairs under the exact window to stats (_count_pairs)."""
         _add_stats(self.stats, "anchors", int(n_anchors.sum(dtype=np.int64)))
         self._count_pairs(n_anchors, A, window, bands)
+
+    def _count_probe(self, n_mini: np.ndarray) -> None:
+        """Add probe_queries: the query keys a batch's stage "probe" looked
+        up, its reads' minimizers (n_mini; padding rows and slots
+        excluded)."""
+        _add_stats(self.stats, "probe_queries", int(np.asarray(n_mini).sum(dtype=np.int64)))
 
     def _count_pairs(self, n_anchors: np.ndarray, A: int, window: int, bands: int) -> None:
         """Add chain_pairs: bands x the candidate pairs the exact window
@@ -674,18 +728,15 @@ class Mapper:
 
     def _drain_tier2(self, reads, results):
         """Re-run reads whose minimizer/anchor population overflowed the
-        default slots (or whose window was truncated) at 4x capacities;
-        residual overflow goes to the host pipeline."""
+        default slots (or whose window was truncated) at 4x capacities,
+        however few: the host pipeline maps a read in Python, tens of
+        milliseconds on a human-sized index, while a mapper with captured
+        programs replays the tier's program on every later call. Residual
+        overflow goes to the host pipeline."""
         tq = self._tier2_queue
         self._tier2_queue = []
         _add_stats(self.stats, "tier2_reads", len(tq))
         if not tq:
-            return
-        if len(tq) < 48:
-            # a handful of reads: the host pipeline is cheaper than a
-            # fresh device program
-            for ri in tq:
-                results[ri] = self._host_fallback(reads[ri])
             return
         pending = self._submit_groups(reads, self._group(reads, tq),
                                       self._scalars, mult=4, band="tier2")

@@ -22,7 +22,8 @@ captured steps hold their collectives (models/mesh_mapper.py):
     static output into a fresh pinned host buffer.
 
 A program may be a sequence of named stages (staged(): the lite and
-general map programs run "sketch", "anchors" and "chain"); any other
+general map programs run "sketch", "anchors" and "chain", and on the
+prefix-probe layout "sketch", "probe", "anchors" and "chain"); any other
 function is one stage, named by named() ("rechain", "mesh_step") or
 "stage". The cache keeps one program per key holding one graph per
 stage, captured in order on the same side stream into the same pool and

@@ -24,7 +24,12 @@ from ..ops.finalize_ops import (
     wire_packable,
 )
 from ..ops.index_ops import DeviceIndex
-from ..ops.seeds_ops import build_anchors_device, query_occ_filter, sort_minimizers_by_key
+from ..ops.seeds_ops import (
+    expand_anchors,
+    lookup_keys,
+    query_occ_filter,
+    sort_minimizers_by_key,
+)
 from ..ops.sketch import compact_minimizers, sketch_positions, wire_codes
 
 
@@ -56,9 +61,23 @@ def sketch_compact_filter(codes, lengths, *, w: int, k: int, q_occ_max: int,
 def lookup_expand(dev_idx: DeviceIndex, mini: dict, lengths, mid_occ: int,
                   A: int) -> dict:
     """Index lookup + anchor expansion + per-read anchor sort
-    (seeds.rs:42-79)."""
-    x_hi, x_lo, y_hi, y_lo, n_anchors, anc_ovf = build_anchors_device(
-        dev_idx, mini["sks"], mini["sps"], mini["keep"], lengths, mid_occ, A,
+    (seeds.rs:42-79): probe, then expand."""
+    return expand(dev_idx, probe(dev_idx, mini), lengths, mid_occ, A)
+
+
+def probe(dev_idx: DeviceIndex, mini: dict) -> dict:
+    """The index lookup of sketch_compact_filter's minimizers: `mini`
+    with each slot's occurrence block, start and count (lookup_keys)."""
+    start, count = lookup_keys(dev_idx, mini["sks"], mini["keep"])
+    return dict(mini, start=start, count=count)
+
+
+def expand(dev_idx: DeviceIndex, mini: dict, lengths, mid_occ: int, A: int) -> dict:
+    """Anchor expansion + per-read anchor sort of probed minimizers
+    (seeds.rs:48-79)."""
+    x_hi, x_lo, y_hi, y_lo, n_anchors, anc_ovf = expand_anchors(
+        dev_idx, mini["sks"], mini["sps"], mini["keep"], mini["start"], mini["count"],
+        lengths, mid_occ, A,
     )
     return dict(x_hi=x_hi, x_lo=x_lo, y_hi=y_hi, y_lo=y_lo,
                 n_anchors=n_anchors, anc_ovf=anc_ovf)

@@ -288,11 +288,14 @@ def fill_direct_table(
 
 
 def gather_rows(table: torch.Tensor, base: torch.Tensor, S: int) -> torch.Tensor:
-    """table (N, C), base any int shape -> (*base.shape, S, C): S
-    consecutive rows per query, clamped at the end (JAX
-    index_ops.py:425-437)."""
-    i = base.unsqueeze(-1) + torch.arange(S, device=base.device)
-    return table[i.clamp(0, table.shape[0] - 1)]
+    """table (N, C), N >= S, base any int shape -> (*base.shape, S, C): the
+    S consecutive rows from each base, one gather from a view of the
+    table's S-row windows, with one index a query. A base past N - S
+    takes the last window; JAX index_ops.py:425-437 clamps each row at
+    the end instead, the same rows wherever base <= N - S, as every
+    prefix table's bound is (kv has S sentinel rows past its U keys)."""
+    windows = table.unfold(0, S, 1).transpose(-1, -2)  # (N - S + 1, S, C), a view
+    return windows[base.clamp(0, table.shape[0] - S)]
 
 
 def index_lookup(idx: DeviceIndex, q: torch.Tensor):
@@ -304,12 +307,24 @@ def index_lookup(idx: DeviceIndex, q: torch.Tensor):
     if not idx.dm_slots:
         p = (q >> idx.prefix_shift).clamp(0, idx.prefix.shape[0] - 2)
         base = idx.prefix.to(torch.int64)[p]
-        rows = _u32(gather_rows(idx.kv, base, idx.bucket_slots))  # (..., S, 4)
-        hit = (rows[..., 0] == (q >> 32).unsqueeze(-1)) & (
-            rows[..., 1] == (q & U32_MASK).unsqueeze(-1)
+        # the S rows stay int32 words, compared with the key's words as
+        # int32 bits, and only the hit row widens: at S 128 (a human-sized
+        # index at k 19) the rows are 2 KB a query key; widened to int64,
+        # 4 KB (9 GiB for a batch of bucket 16,384) beside int64 row
+        # indices, they do not fit the card beside the index
+        rows = gather_rows(idx.kv, base, idx.bucket_slots)  # (..., S, 4) int32
+        # (the int64 -> int32 cast keeps the low 32 bits)
+        hit = (rows[..., 0] == (q >> 32).to(torch.int32).unsqueeze(-1)) & (
+            rows[..., 1] == q.to(torch.int32).unsqueeze(-1)
         )
-        start = torch.where(hit, rows[..., 2], 0).amax(dim=-1)
-        count = torch.where(hit, rows[..., 3], 0).amax(dim=-1)
+        # keys are distinct and the sentinel rows match no key: at most
+        # one hit, whose start and count the JAX probe's max over the
+        # slots gives (0 without one)
+        slot = hit.to(torch.int8).argmax(dim=-1)[..., None, None].expand(*q.shape, 1, 4)
+        row = _u32(rows.gather(-2, slot).squeeze(-2))  # (..., 4)
+        found = hit.any(dim=-1)
+        start = torch.where(found, row[..., 2], 0)
+        count = torch.where(found, row[..., 3], 0)
         return start, count
     S = idx.dm_slots
     if idx.dm_entry == 3:

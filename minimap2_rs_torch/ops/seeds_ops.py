@@ -61,24 +61,31 @@ def query_occ_filter(ks: torch.Tensor, n_mini: torch.Tensor, q_occ_max: int,
     return (idx < n) & ~drop
 
 
-def build_anchors_device(
+def lookup_keys(idx: DeviceIndex, ks: torch.Tensor, keep: torch.Tensor):
+    """The index lookup of every minimizer slot (seeds.rs:42-47): (start,
+    count) int64 (B, M) of its key's occurrence block. Filtered and
+    padding slots probe key 0; expand_anchors, which places the anchors,
+    masks their counts."""
+    return index_lookup(idx, torch.where(keep, ks_keys(ks), 0))
+
+
+def expand_anchors(
     idx: DeviceIndex,
     ks: torch.Tensor,       # (B, M) int64 key_span, key-sorted per read
     ps: torch.Tensor,       # (B, M) int64 query pos<<1|strand
     keep: torch.Tensor,     # (B, M) bool survivor mask
+    start: torch.Tensor,    # (B, M) int64 occurrence block of each slot's key
+    count: torch.Tensor,    # (B, M) int64 (lookup_keys)
     qlen: torch.Tensor,     # (B,) query lengths
     mid_occ: int,
     max_anchors: int,
 ):
-    """Lookup + expansion + sort (seeds.rs:42-79). Returns x_hi, x_lo,
-    y_hi, y_lo ((B, A) int64 uint32 words, padding 0xFFFFFFFF sorted
-    last), n_anchors (B,) int32 and overflow (B,) bool."""
+    """Expansion + sort of looked-up minimizers (seeds.rs:48-79). Returns
+    x_hi, x_lo, y_hi, y_lo ((B, A) int64 uint32 words, padding 0xFFFFFFFF
+    sorted last), n_anchors (B,) int32 and overflow (B,) bool."""
     B, M = ks.shape
     A = max_anchors
     dev = ks.device
-    # filtered/padding slots probe key 0 (their counts are masked below)
-    keys = torch.where(keep, ks_keys(ks), 0)
-    start, count = index_lookup(idx, keys)
     # over-frequent target keys are skipped; singletons always kept
     # (seeds.rs:48-53)
     count = torch.where((count > 1) & (count > mid_occ), 0, count)

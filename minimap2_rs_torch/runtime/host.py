@@ -159,6 +159,8 @@ def _load():
         i32p, u8p, i64p, u8p, i64p, i32p,
         ctypes.c_int32, i32p, u8p, ctypes.c_int64, i64p,
     ]
+    lib.mm2t_powf.restype = None
+    lib.mm2t_powf.argtypes = [f32p, f32p, f32p, ctypes.c_int64]
     lib.mm2t_mmi_selfcheck.restype = ctypes.c_int64
     lib.mm2t_mmi_selfcheck.argtypes = [u8p, ctypes.c_int64]
     lib.mm2t_build_pairs.restype = ctypes.c_int64
@@ -472,6 +474,21 @@ def native_format_lite(
     if total < 0:
         return None  # capacity miss (absurdly long names); Python path
     return out[:total].tobytes(), line_off
+
+
+def powf(x: np.ndarray, y: np.ndarray) -> np.ndarray:
+    """x ** y elementwise in float32 as libm's powf gives it (minimap2_rs's
+    f32::powf): the native runtime's loop, else NumPy's scalar float32
+    power, which calls powf. NumPy's array power may not: its AVX-512
+    kernel is an ulp off for about a tenth of inputs."""
+    x = np.ascontiguousarray(x, dtype=np.float32)
+    y = np.ascontiguousarray(y, dtype=np.float32)
+    lib = _load()
+    if lib is None:
+        return np.array([a ** b for a, b in zip(x, y)], dtype=np.float32)
+    out = np.empty_like(x)
+    lib.mm2t_powf(x, y, out, x.shape[0])
+    return out
 
 
 def native_sketch_array(seq: bytes, w: int, k: int, rid: int = 0, is_hpc: bool = False):

@@ -1213,6 +1213,14 @@ int64_t mm2t_build_index(
   return total;
 }
 
+// out[i] = powf(x[i], y[i]) for i < n: libm's f32 power element by
+// element, as minimap2_rs's f32::powf in the dv estimate (paf.rs:199).
+// NumPy's vectorised float32 power is an ulp off it for about a tenth
+// of inputs where it dispatches AVX-512.
+void mm2t_powf(const float* x, const float* y, float* out, int64_t n) {
+  for (int64_t i = 0; i < n; i++) out[i] = powf(x[i], y[i]);
+}
+
 // Back-compat wrapper: nt4-code input, pairs only.
 int64_t mm2t_build_pairs(
     const uint8_t* codes, const int64_t* seq_off, int64_t n_seq,

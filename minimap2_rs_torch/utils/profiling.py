@@ -17,7 +17,7 @@ import torch.autograd.profiler as _autograd_profiler
 SPAN_PREFIX = "mm2t."
 # stats keys printed as counts, not seconds: by suffix, and by name
 _COUNT_SUFFIXES = ("_bytes", "_reads", "_stages", "_batches")
-_COUNT_KEYS = ("anchors", "chain_pairs")
+_COUNT_KEYS = ("anchors", "chain_pairs", "probe_queries")
 
 
 class _Span:
@@ -84,7 +84,8 @@ def _is_count(key: str) -> bool:
 def print_stage_stats(stats: dict, n_reads: int, total_bp: int, dt: float, file=sys.stderr):
     """Per-stage breakdown in the spirit of the reference's index stats
     line (main.rs:154-155): seconds, and the counters (bytes, reads,
-    stages, batches, graph_*, anchors, chain_pairs) as integers."""
+    stages, batches, graph_*, anchors, chain_pairs, probe_queries) as
+    integers."""
     parts = " ".join(
         f"{k}:{int(v)}" if _is_count(k) else f"{k}:{v:.2f}s"
         for k, v in sorted(stats.items()) if isinstance(v, (int, float))

@@ -142,7 +142,7 @@ def test_chain_finalize_prefix_equals_the_jax_program_rows():
         tconfig.ChainParams.defaults_for_k(15), tconfig.MapParams(), device="cpu",
         batch_size=16, **SIZES["mapper"])
     host_in, st = bt.lite_batch(m, rl, 512)
-    got = dict(bt.stage_prefixes(st))["chain_finalize"](*host_in)
+    got = dict(bt.stage_prefixes(st, m._map_program(lite=True)))["chain_finalize"](*host_in)
     mine, _ready = m._device_stage_lite(
         *(a.numpy() for a in host_in), m._scalars, stats={},
         **{k: st[k] for k in ("wide", "M", "A", "window", "wire", "max_chain_skip")})

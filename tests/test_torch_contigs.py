@@ -11,7 +11,7 @@ prefix probe, as they do once the table would pass its 2 GB cap (an
 assembly of a few hundred Mbp). Held equal to the JAX package:
   * the index builds (native, device on the CPU, the JAX oracle's);
   * DeviceIndex.from_host: flags, layout scalars and every table;
-  * the anchors (build_anchors_device through sketch_to_anchors) of
+  * the anchors (lookup_keys and expand_anchors through sketch_to_anchors) of
     reads from both ends of contigs on both strands, the last included;
   * Mapper.map_reads_paf: PAF bytes equal to the JAX Mapper's and the
     oracle's on the lite path, the general path (MM2T_NO_LITE) and long

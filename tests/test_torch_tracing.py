@@ -1,7 +1,8 @@
 """The port's tracing on the CPU: the map programs split into the stages
-sketch, anchors and chain give the bytes of the unsplit pipeline, eagerly
-and through the program cache's stand-in graphs, with the per-batch
-program counts unchanged; the drain's chain_pairs equals the pairs
+sketch, anchors and chain (on the prefix-probe layout sketch, probe,
+anchors and chain) give the bytes of the unsplit pipeline, eagerly and
+through the program cache's stand-in graphs, with the per-batch program
+counts unchanged; the drain's chain_pairs equals the pairs
 utils/measure.chain_bound counts on the same chain-DP calls; the card's
 idle split adds up with the batches' stamps to the call's span (here on
 host-clock stamps); span() opens its profiler range only under a profiler,
@@ -26,6 +27,8 @@ from minimap2_rs_torch.models.programs import (
     program_stages,
     run_eager,
 )
+from minimap2_rs_torch.ops import index_ops as tidx
+from minimap2_rs_torch.runtime.host import native_sketch_array
 from minimap2_rs_torch.utils import measure, profiling
 from minimap2_rs_torch.utils.seqsim import random_genome, simulate_reads
 
@@ -115,9 +118,9 @@ def _batches(m, genome, wire, bucket=512):
 def _statics(m, path, wire, bucket=512):
     M, A, window, _B = m._shapes_for(bucket, 1)
     if path == "lite":
-        return tmapper._fused_map_stage_lite, _unsplit_lite, m._lite_statics(
+        return m._map_program(lite=True), _unsplit_lite, m._lite_statics(
             m._scalars, wide=True, M=M, A=A, window=window, wire=wire, max_chain_skip=None)
-    return tmapper._fused_map_stage, _unsplit_general, dict(
+    return m._map_program(lite=False), _unsplit_general, dict(
         dev_idx=m.dev_idx, scalars=m._scalars, mid_occ=m.mid_occ, log2_tab=m._log2_tab,
         M=M, A=A, window=window, wire=wire, max_chain_skip=None, **m._stage_kw())
 
@@ -152,6 +155,46 @@ def test_staged_programs_equal_the_unsplit_pipeline(small, path, wire):
     (prog,) = cache.programs.values()
     assert len(prog.graphs) == 3 and len(prog.stage_launches) == 3
     assert prog.launches == [e for rec in prog.stage_launches for e in rec]
+
+
+@pytest.mark.parametrize("path", ["lite", "general"])
+def test_the_probe_layout_runs_the_lookup_as_a_stage_of_its_own(small, monkeypatch, path):
+    """Without a direct table (the prefix probe, as on a human-sized
+    index) the map programs run four stages, the lookup ("probe") apart
+    from the expansion and sort ("anchors"), with the unsplit pipeline's
+    bytes eagerly and through the stand-in graphs; a mapping pass stamps
+    dev_probe and counts probe_queries, the reads' minimizers. On the
+    direct table the programs keep their three stages and neither key
+    appears; the PAF bytes are the same."""
+    genome, idx, cp, mp = small
+    if path == "general":
+        cp = ChainParams.defaults_for_k(K, min_cnt=1, min_chain_score=10)
+    direct = tmapper.Mapper.from_oracle_index(idx, cp, mp, device="cpu", **SMALL)
+    monkeypatch.setattr(tidx, "_DM_BYTE_CAP", 1)
+    monkeypatch.setattr(tidx.plan_direct_layout, "__defaults__", (1,))
+    m = tmapper.Mapper.from_oracle_index(idx, cp, mp, device="cpu", **SMALL)
+    assert direct.dev_idx.dm_slots > 0 and m.dev_idx.dm_slots == 0
+    assert [n for n, _s in program_stages(_statics(direct, path, "2bit")[0])] == [
+        "sketch", "anchors", "chain"]
+    fn, unsplit, st = _statics(m, path, "2bit")
+    assert [n for n, _s in program_stages(fn)] == ["sketch", "probe", "anchors", "chain"]
+    cache, stats = ProgramCache("cpu", graph=ReplayStandIn), {}
+    for batch in _batches(m, genome, "2bit"):
+        want = unsplit(*batch, **st)
+        assert torch.equal(fn(*batch, **st), want)
+        got, stamps = cache.run(fn, batch, stats, **st)
+        assert torch.equal(got, want)
+        assert stamps.names == ("h2d", "sketch", "probe", "anchors", "chain", "d2h")
+    rl = _reads(genome, 12, seed=13)
+    blob = m.map_reads_paf(rl)
+    assert blob == direct.map_reads_paf(rl) and blob.count(b"\n") >= 8
+    assert m.stats["dev_probe"] > 0
+    assert "dev_probe" not in direct.stats and "probe_queries" not in direct.stats
+    assert direct.stats["dev_anchors"] > 0
+    # every read ran once (no tier 2, no wide pass): one probe a minimizer
+    assert not m.stats.get("tier2_reads") and not m.stats.get("wide_reads")
+    n_mini = sum(len(native_sketch_array(s, W, K)) for _n, s in rl)
+    assert m.stats["probe_queries"] == n_mini
 
 
 def test_evictions_and_recaptures_are_counted():
