@@ -63,6 +63,7 @@ from minimap2_rs_torch.config import ChainParams, IndexParams, MapParams
 from minimap2_rs_torch.device import resolve_device
 from minimap2_rs_torch.kernels import chain_dp as kchain
 from minimap2_rs_torch.kernels import counts
+from minimap2_rs_torch.kernels import probe as kprobe
 from minimap2_rs_torch.kernels import sketch as ksketch
 from minimap2_rs_torch.kernels import window_scan as kscan
 from minimap2_rs_torch.models.index_builder import build_index_device, build_index_native
@@ -72,13 +73,11 @@ from minimap2_rs_torch.models.mapper import (
     _chain_skip_cfg,
 )
 from minimap2_rs_torch.models.programs import CudaGraph, program_key
-from minimap2_rs_torch.models.stages import sketch_to_anchors
+from minimap2_rs_torch.models.stages import probe, sketch_to_anchors
 from minimap2_rs_torch.ops.chain_ops import chain_scalars_from_params
-from minimap2_rs_torch.ops.index_ops import index_lookup
 from minimap2_rs_torch.ops.seeds_ops import query_occ_filter, sort_minimizers_by_key
 from minimap2_rs_torch.ops.sketch import (
     compact_minimizers,
-    ks_keys,
     sketch_positions,
     wire_codes,
 )
@@ -234,10 +233,11 @@ def _graph_ms(fn) -> float:
 def _counting(fn):
     """(fn(), {kernel/shape: launches}) with every launch count set to 0
     just before fn and read just after."""
-    for m in (kchain, kscan, ksketch):
+    for m in (kchain, kscan, ksketch, kprobe):
         m.reset_launches()
     out = fn()
-    return out, {k: v for m in (kchain, kscan, ksketch) for k, v in m.launches.items() if v}
+    return out, {k: v for m in (kchain, kscan, ksketch, kprobe) for k, v in m.launches.items()
+                 if v}
 
 
 def _aligned_bp(reads, lines) -> int:
@@ -300,7 +300,8 @@ def stage_prefixes(statics: dict, program) -> list:
     def lookup(wire, lens, nex):
         (sks, _sps), n_mini = minisort(wire, lens, nex)
         keep = query_occ_filter(sks, n_mini, st["q_occ_max"], st["q_occ_frac"])
-        return index_lookup(st["dev_idx"], torch.where(keep, ks_keys(sks), 0))
+        out = probe(st["dev_idx"], dict(sks=sks, keep=keep))
+        return out["start"], out["count"]
 
     def expand_sort(wire, lens, nex):
         return sketch_to_anchors(st["dev_idx"], unpack_wire(wire, lens, nex), lens,

@@ -5,8 +5,9 @@
 Builds the port's CUDA kernels from minimap2_rs_torch/csrc (the chain
 DP's two variants in their short-read, lane and template designs, their
 pruned instances in the shared-memory and template designs, the window
-scan in its tiled and sequential designs, and the odd-k sketch from the
-wire; one nvcc per source, in parallel) and maps through the port's
+scan in its tiled and sequential designs, the odd-k sketch from the
+wire and the prefix probe; one nvcc per source, in parallel) and maps
+through the port's
 Mapper.map_reads_paf:
 
   * lite path (default ChainParams, k=15): a 5 Mbp random genome
@@ -80,7 +81,9 @@ Mapper.map_reads_paf:
     (MM2T_NO_LITE) against the exact-window oracle; the medians,
     aligned bp/s, the wire flags of each mix's first pass, the lookup
     stage's card time, peak device memory and the host's peak RSS. Its
-    kernel rows count its own timed passes;
+    kernel rows count its own timed passes, the prefix-probe kernel's
+    (S 16) too: equal to the plain branch on every input both mixes kept,
+    timed on the largest;
   * chm13: a human-sized reference, 3,117,292,070 bp (seed 11) cut into
     T2T-CHM13v2.0's 25 sequences at their lengths (past 2^31 bases, so
     the length alone refuses the packed position plane), in a child
@@ -94,7 +97,14 @@ Mapper.map_reads_paf:
     long reads that the 4x tier mapped on the card, held to the oracle;
     the general-path sample; the lookup stage's card time; peak device
     memory and the child's peak RSS. It times its own four kernel rows
-    and hands them to the parent;
+    and the prefix-probe kernel's (S 16, as in the assembly phase) and
+    hands them to the parent;
+  * chm13-hifi probe: after the chm13 child, `python3 probe_hifi.py` in
+    a child of its own: the benchmark cell chm13-hifi's index (T2T-CHM13's
+    lengths at k 19, the prefix probe at 128 slots) and one pool call of
+    its HiFi reads on captured programs, as the cell maps it; the
+    prefix-probe kernel held to the plain branch on every batch shape,
+    timed on the largest, its launches those of a pass of replays;
   * bench: bench_torch.py (the port's bench.py) at a cut size, `--reads
     2048 --longread-n 64 --skip-large`, before the mesh phases (it
     fails on any parity difference or a section without its kernels'
@@ -672,9 +682,9 @@ class _OracleRescues:
 
 
 def _kernel_modules():
-    from minimap2_rs_torch.kernels import chain_dp, sketch, window_scan
+    from minimap2_rs_torch.kernels import chain_dp, probe, sketch, window_scan
 
-    return chain_dp, window_scan, sketch
+    return chain_dp, window_scan, sketch, probe
 
 
 def _counted(tag, fn, keys, total):
@@ -909,7 +919,8 @@ def _forced_phases(cp, mp, total) -> None:
               f"{st.get('tier2_reads')}, wide_reads {st.get('wide_reads')}")
 
 
-KERNEL_FAMILIES = ("chain_dp", "window_scan", "sketch")  # launch-key and kernel-name prefixes
+# launch-key and kernel-name prefixes
+KERNEL_FAMILIES = ("chain_dp", "window_scan", "sketch", "probe_prefix")
 
 
 def _families(keys) -> dict:
@@ -1580,6 +1591,16 @@ def _lookup_ms(tag, mapper, reads) -> dict:
     return ms
 
 
+def _probe_rows(tag, out, counts) -> list:
+    """The prefix-probe kernel on the inputs both mixes of a phase kept
+    (probe_hifi.probe_rows: equal to the plain branch on each, timed on the
+    largest), its launches counted over the phase's timed passes."""
+    import probe_hifi
+
+    return probe_hifi.probe_rows(tag, {**out["long"], **out["short"]},
+                               counts.get("probe_prefix", 0))
+
+
 def _phase_rows(tag, out, cap_g, counts, gcounts) -> list:
     """A reference phase's four kernel rows' arguments for _kernel_row
     (each counted over that phase's own timed passes)."""
@@ -1673,10 +1694,11 @@ def _assembly_phase(cp, mp) -> list:
         if max(int(l.split("\t", 6)[5][3:]) for l in lines) < 64:
             raise AssertionError(f"[{tag} {mix}] no PAF line on a contig id past 63")
     _lookup_ms(tag, mapper, short)
+    probe = _probe_rows(tag, out, counts)
     cap_g, gcounts = _general_sample(tag, idx, mapper, short[::64] + long_[::64], cp, mp)
     print(_peak_line(tag))
     print(f"{tag} launches over the timed passes: lite {counts}, general sample {gcounts}")
-    return _phase_rows(tag, out, cap_g, counts, gcounts)
+    return _phase_rows(tag, out, cap_g, counts, gcounts), probe
 
 
 # the chm13 phase: a human-sized reference in the shape of T2T-CHM13v2.0
@@ -1862,11 +1884,13 @@ def _chm13_phase(cp, mp, wait=None) -> list:
                       {n: sum(1 for l in lines if l.split("\t", 6)[5] == n) for n in per}))
     _tier2_parity(tag, mapper, long_, idx, cp, mp)
     _lookup_ms(tag, mapper, short)
+    probe = _probe_rows(tag, out, counts)
     cap_g, gcounts = _general_sample(tag, idx, mapper, short[::64] + long_[::64], cp, mp)
     print(_peak_line(tag))
     print(f"{tag} launches over the timed passes: lite {counts}, general sample {gcounts}")
     tab = mapper._log2_tab
-    return [_kernel_row(*row, tab) for row in _phase_rows(tag, out, cap_g, counts, gcounts)]
+    return [_kernel_row(*row, tab) for row in _phase_rows(tag, out, cap_g, counts,
+                                                          gcounts)] + probe
 
 
 class _Chm13Child:
@@ -1914,6 +1938,36 @@ class _Chm13Child:
         print(f"chm13 phase {time.perf_counter() - self.t0:.1f} s in its process, "
               f"{time.perf_counter() - t_go:.1f} s of it after the go")
         return json.loads(self.rows_path.read_text())
+
+
+# the chm13-hifi probe child's limit: the cell's set-up (about 2.5 minutes),
+# three passes of one pool call and the kernel's check and times
+HIFI_PROBE_TIMEOUT_S = 600
+
+
+def _hifi_probe_phase(rows_path: Path) -> list:
+    """`python3 probe_hifi.py --rows rows_path` in a child process: the
+    benchmark cell chm13-hifi's index (T2T-CHM13 at k 19, the probe at 128
+    slots) and one pool call of its reads on captured programs, the
+    prefix-probe kernel held to the plain branch, and its kernel row,
+    which it returns. Its output is passed on; a
+    non-zero exit or HIFI_PROBE_TIMEOUT_S fails the run."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve().parent / "probe_hifi.py"), "--rows",
+         str(rows_path)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    watchdog = threading.Timer(HIFI_PROBE_TIMEOUT_S, proc.kill)
+    watchdog.start()
+    try:
+        for line in proc.stdout:
+            print(line, end="")
+        rc = proc.wait()
+    finally:
+        watchdog.cancel()
+    if rc:
+        raise RuntimeError(f"the chm13-hifi probe phase exited {rc}")
+    print(f"chm13-hifi probe phase {time.perf_counter() - t0:.1f} s in its process")
+    return json.loads(rows_path.read_text())
 
 
 def _phase_main(phase: str, rows_path: Path | None, wait: bool) -> int:
@@ -2249,7 +2303,7 @@ def main(argv=None) -> int:
     sections.mark("assembly")
     # ---- assembly: 278,413,945 bp in 300 contigs, short and long mixes --
     t0 = time.perf_counter()
-    assembly_rows = _assembly_phase(cp, mp)
+    assembly_rows, assembly_probe = _assembly_phase(cp, mp)
     torch.cuda.empty_cache()
     print(f"assembly phase {time.perf_counter() - t0:.1f} s")
 
@@ -2425,8 +2479,13 @@ def main(argv=None) -> int:
         for want_design, cases in _synthetic_cases().items():
             _synthetic_phase(tab, want_design, cases)
         print(f"synthetic phase {time.perf_counter() - t0:.1f} s")
+        kernels += assembly_probe
         sections.mark("chm13")
         kernels += chm13.finish()
+    sections.mark("chm13-hifi probe")
+    # ---- the prefix probe on one chm13-hifi pool call, in a child process
+    # of its own after the chm13 one (host memory) -------------------------
+    kernels += _hifi_probe_phase(trace_dir / "hifi_probe_rows.json")
 
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")

@@ -121,5 +121,13 @@ def library() -> ctypes.CDLL:
             ci, ci, ci, ci, ci,  # B, L, w, k, M
             vp,                  # stream
         ]
+        fn = lib.mm2t_probe_prefix
+        fn.restype = ci
+        fn.argtypes = [
+            vp, vp, ctypes.c_longlong,  # sks, keep, slots
+            vp, ci, vp, ci,             # prefix, its length, kv, prefix_shift
+            vp, vp,                     # start, count
+            vp,                         # stream
+        ]
         _lib = lib
     return _lib

@@ -46,6 +46,7 @@ import torch
 
 from ..config import ChainParams, MapParams
 from ..device import resolve_device
+from ..kernels import probe as kprobe
 from ..kernels import sketch as ksketch
 from ..kernels.chain_dp import chain_dp_batch
 from ..ops.chain_ops import ChainScalars, chain_scalars_from_params, log2_table
@@ -554,16 +555,18 @@ class Mapper:
         buffer, the batch's Stamps: its last event is the one its copy
         completes, Stamps.ready, None on the CPU). Adds device_stages, the
         cache's counts (or eager_stages), sketch_kernel_batches (the odd-k
-        sketch kernel's launches, replays included, kernels/sketch.py) and
-        the host seconds upload, stage_issue and d2h_issue to stats."""
+        sketch kernel's launches, replays included, kernels/sketch.py),
+        probe_kernel_batches (the prefix-probe kernel's, kernels/probe.py)
+        and the host seconds upload, stage_issue and d2h_issue to stats."""
         _add_stats(stats, "device_stages", 1)
         inputs = tuple(map(torch.from_numpy, inputs))
-        sketched = ksketch.total_launches()
+        sketched, probed = ksketch.total_launches(), kprobe.total_launches()
         if self.programs is not None:
             out = self.programs.run(fn, inputs, stats, **statics)
         else:
             out = run_eager(fn, inputs, stats, self._clock, **statics)
         _add_stats(stats, "sketch_kernel_batches", ksketch.total_launches() - sketched)
+        _add_stats(stats, "probe_kernel_batches", kprobe.total_launches() - probed)
         return out
 
     def _device_stage_lite(self, wire_arr, lengths, nex, scalars: ChainScalars, *,

@@ -3,10 +3,11 @@
 Counterpart of minimap2_rs_tpu/models/stages.py: wire unpack -> sketch
 -> minimizer compaction (at odd k one kernel from the wire on the card,
 kernels/sketch.py; the unpack lives in ops/sketch.py) -> key sort ->
-occurrence filter -> index lookup -> anchor expansion -> chain DP (the
-CUDA kernel on the card). The lite path goes on to on-device finalize
-and 10-word wire rows; the general path's program (models/mapper.py)
-returns the anchors and (f, prev).
+occurrence filter -> index lookup (on an index with no direct table the
+prefix-probe kernel on the card, kernels/probe.py) -> anchor expansion
+-> chain DP (the CUDA kernel on the card). The lite path goes on to
+on-device finalize and 10-word wire rows; the general path's program
+(models/mapper.py) returns the anchors and (f, prev).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels.chain_dp import chain_dp_aux_batch
+from ..kernels.probe import probe_prefix
 from ..kernels.sketch import sketch_minimizers
 from ..ops.chain_ops import ChainScalars
 from ..ops.finalize_ops import (
@@ -67,8 +69,13 @@ def lookup_expand(dev_idx: DeviceIndex, mini: dict, lengths, mid_occ: int,
 
 def probe(dev_idx: DeviceIndex, mini: dict) -> dict:
     """The index lookup of sketch_compact_filter's minimizers: `mini`
-    with each slot's occurrence block, start and count (lookup_keys)."""
-    start, count = lookup_keys(dev_idx, mini["sks"], mini["keep"])
+    with each slot's occurrence block, start and count (lookup_keys).
+
+    An index with no direct table takes the prefix-probe kernel on the
+    card (kernels/probe.py; on the CPU its plain version,
+    ops/index_ops.prefix_probe)."""
+    lookup = lookup_keys if dev_idx.dm_slots else probe_prefix
+    start, count = lookup(dev_idx, mini["sks"], mini["keep"])
     return dict(mini, start=start, count=count)
 
 

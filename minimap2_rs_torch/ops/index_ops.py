@@ -25,7 +25,9 @@ keeps the compact layout the planner would fuse: dm_entry == 2, a
 Above the 2 GB cap the planner gives no direct table, and the lookup
 falls back to the prefix probe (JAX index_ops.py:504-521): the prefix
 table gives each key's bucket base in the padded key table `kv`, and S
-consecutive rows are compared there.
+consecutive rows are compared there (prefix_probe; on the card the map
+programs take the kernel of kernels/probe.py, which reads the bucket's
+own rows alone).
 
 Tables are stored as int32 tensors holding the uint32 words' bits.
 """
@@ -298,34 +300,44 @@ def gather_rows(table: torch.Tensor, base: torch.Tensor, S: int) -> torch.Tensor
     return windows[base.clamp(0, table.shape[0] - S)]
 
 
+def prefix_probe(idx: DeviceIndex, q: torch.Tensor):
+    """The prefix probe of an index with no direct table (JAX
+    index_ops.py:504-521): for each query key (int64, any shape), the S =
+    bucket_slots rows of kv from its bucket's base prefix[q >> shift],
+    compared with the key, (start, count) int64 of the hit row, 0 and 0
+    without one. The plain version of the kernel csrc/probe.cu, which
+    reads only the bucket's own rows (kernels/probe.py); it runs on CPU
+    tensors."""
+    p = (q >> idx.prefix_shift).clamp(0, idx.prefix.shape[0] - 2)
+    base = idx.prefix.to(torch.int64)[p]
+    # the S rows stay int32 words, compared with the key's words as
+    # int32 bits, and only the hit row widens: at S 128 (a human-sized
+    # index at k 19) the rows are 2 KB a query key; widened to int64,
+    # 4 KB (9 GiB for a batch of bucket 16,384) beside int64 row
+    # indices, they do not fit the card beside the index
+    rows = gather_rows(idx.kv, base, idx.bucket_slots)  # (..., S, 4) int32
+    # (the int64 -> int32 cast keeps the low 32 bits)
+    hit = (rows[..., 0] == (q >> 32).to(torch.int32).unsqueeze(-1)) & (
+        rows[..., 1] == q.to(torch.int32).unsqueeze(-1)
+    )
+    # keys are distinct and the sentinel rows match no key: at most
+    # one hit, whose start and count the JAX probe's max over the
+    # slots gives (0 without one)
+    slot = hit.to(torch.int8).argmax(dim=-1)[..., None, None].expand(*q.shape, 1, 4)
+    row = _u32(rows.gather(-2, slot).squeeze(-2))  # (..., 4)
+    found = hit.any(dim=-1)
+    start = torch.where(found, row[..., 2], 0)
+    count = torch.where(found, row[..., 3], 0)
+    return start, count
+
+
 def index_lookup(idx: DeviceIndex, q: torch.Tensor):
     """For each query key (int64, any shape): (start, count) int64 of its
     occurrence block, count 0 when absent (Index::get, index.rs:143-154).
     One row gather on the direct-mapped table (two phases for the
-    sharded index's compact entry); the two-gather prefix probe when
-    there is none."""
+    sharded index's compact entry); prefix_probe when there is none."""
     if not idx.dm_slots:
-        p = (q >> idx.prefix_shift).clamp(0, idx.prefix.shape[0] - 2)
-        base = idx.prefix.to(torch.int64)[p]
-        # the S rows stay int32 words, compared with the key's words as
-        # int32 bits, and only the hit row widens: at S 128 (a human-sized
-        # index at k 19) the rows are 2 KB a query key; widened to int64,
-        # 4 KB (9 GiB for a batch of bucket 16,384) beside int64 row
-        # indices, they do not fit the card beside the index
-        rows = gather_rows(idx.kv, base, idx.bucket_slots)  # (..., S, 4) int32
-        # (the int64 -> int32 cast keeps the low 32 bits)
-        hit = (rows[..., 0] == (q >> 32).to(torch.int32).unsqueeze(-1)) & (
-            rows[..., 1] == q.to(torch.int32).unsqueeze(-1)
-        )
-        # keys are distinct and the sentinel rows match no key: at most
-        # one hit, whose start and count the JAX probe's max over the
-        # slots gives (0 without one)
-        slot = hit.to(torch.int8).argmax(dim=-1)[..., None, None].expand(*q.shape, 1, 4)
-        row = _u32(rows.gather(-2, slot).squeeze(-2))  # (..., 4)
-        found = hit.any(dim=-1)
-        start = torch.where(found, row[..., 2], 0)
-        count = torch.where(found, row[..., 3], 0)
-        return start, count
+        return prefix_probe(idx, q)
     S = idx.dm_slots
     if idx.dm_entry == 3:
         fpb = idx.dm_fp_bits

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..ops import chain_ops
+from ..ops.sketch import KS_INVALID
 from ..oracle.pipeline import map_reads as oracle_map
 
 
@@ -180,6 +181,19 @@ def sketch_bound(rows, lengths, nex, wire: str, w: int, M: int):
     nbytes = (rows.numel() * rows.element_size() + B * 4
               + (nex.numel() * 4 if wire == "2bit" else 0) + B * M * 16 + B * 5)
     return bound(positions * sketch_ops_per_position(w), nbytes)
+
+
+# Bytes one query key of the prefix probe reads at least: one random 32-byte
+# sector of the key table (port_bench/metrics/probe_roofline.py's yardstick)
+PROBE_BYTES_PER_QUERY = 32
+
+
+def probe_bound(sks):
+    """(bound ms, bound_by) of one prefix-probe call: its real query keys
+    (the slots of sks that are not padding, KS_INVALID) times
+    PROBE_BYTES_PER_QUERY over the memory rate."""
+    queries = int((sks != KS_INVALID).sum())
+    return bound(0, queries * PROBE_BYTES_PER_QUERY)
 
 
 def parity(tag, idx, sample, lines, cp, mp) -> int:
